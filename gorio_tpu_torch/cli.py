@@ -1,0 +1,304 @@
+"""Command-line tools of the PyTorch/CUDA port.
+
+  simulate  — generate a synthetic sequence to .grf files
+  slam      — run odometry + the pose-graph back-end over a .grf sequence
+  evaluate  — ATE/RTE of a TUM trajectory vs ground truth
+
+Usage: python -m gorio_tpu_torch.cli <command> [args]
+
+`slam` accepts every flag of `python -m gorio_tpu.cli slam`; the ones that
+need a module the port does not have yet raise NotImplementedError naming
+the ROADMAP item that ports it. The port runs with loops disabled
+(`--no-loops`) and the dense solver (up to 128 padded poses). `--device`
+picks the torch device (default cuda); there is no fallback to the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+
+def _device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device is available")
+    return device
+
+
+def cmd_simulate(args):
+    from gorio_tpu.io.tum import save_tum
+
+    from .io.native import native
+    from .io.synthetic import (
+        make_dynamic_objects, make_world, render_radar_scan, sample_gps, sample_imu,
+        simulate_trajectory,
+    )
+
+    gn = native()
+    out = Path(args.output)
+    out.mkdir(parents=True, exist_ok=True)
+    traj = simulate_trajectory(
+        seed=args.seed, duration=args.duration, circuit=args.circuit, stops=args.stops,
+        laps=args.laps, figure8=args.figure8, elev_amp=args.elev_amp,
+    )
+    imu = sample_imu(traj, seed=args.seed + 1)
+    # the landmark field covers everywhere the trajectory can see, at the
+    # density `--landmarks` sets for a ±60 m world
+    extent = float(np.abs(traj.p[:, :2]).max()) + 45.0
+    n_landmarks = int(args.landmarks * max(1.0, (extent / 60.0) ** 2))
+    world = make_world(seed=args.seed + 2, n_landmarks=n_landmarks, extent=extent)
+    dyn = make_dynamic_objects(seed=args.seed + 3, n_objects=args.dynamic) if args.dynamic else None
+    stamps = np.arange(0.2, args.duration - 0.2, 1.0 / args.rate)
+    for i, t in enumerate(stamps):
+        R, p = traj.interp_pose(np.array([t]))
+        v = np.stack([np.interp(t, traj.t, traj.v_body[:, k]) for k in range(3)])
+        dpts, dvel = dyn.points_at(float(t)) if dyn is not None else (None, None)
+        cloud = render_radar_scan(
+            world, R[0], p[0], v, capacity=args.capacity, seed=1000 + i,
+            dynamic_points=dpts, dynamic_vel=dvel,
+            azimuth_fov_deg=None if args.omni else args.fov_azimuth,
+            elevation_fov_deg=None if args.omni else args.fov_elevation,
+        )
+        m = cloud.mask.numpy()
+        gn.write_frame(
+            out / f"{i:06d}.grf", float(t), cloud.xyz.numpy()[m],
+            cloud.intensity.numpy()[m], cloud.doppler.numpy()[m],
+        )
+    np.savez(
+        out / "imu.npz", gyr_t=imu.gyr_t, gyr=imu.gyr, vel_t=imu.vel_t, vel=imu.vel,
+        gyr_var=imu.gyr_var, vel_var=imu.vel_var,
+    )
+    if args.gps:
+        g_t, g_xyz, g_cov = sample_gps(
+            traj, rate=args.gps_rate, noise_xy=args.gps_noise_xy, seed=args.seed + 4
+        )
+        np.savez(out / "gps.npz", t=g_t, xyz=g_xyz, cov=g_cov)
+    gt = np.zeros((traj.t.shape[0], 4, 4))
+    gt[:, :3, :3] = traj.R
+    gt[:, :3, 3] = traj.p
+    gt[:, 3, 3] = 1.0
+    save_tum(out / "groundtruth.tum", traj.t, gt)
+    print(f"wrote {len(stamps)} frames to {out}")
+
+
+def _check_slam_flags(args):
+    """Refuse the flags whose modules are not ported yet."""
+    refused = [
+        (args.config, "--config (the typed config tree)", "A13"),
+        (not args.no_loops, "loop closure (the default; pass --no-loops)", "A8"),
+        (args.fused, "--fused", "A10"),
+        (args.preprocess, "--preprocess", "A10"),
+        (args.floor, "--floor", "A10"),
+        (args.preint == "ugpm", "--preint ugpm", "A11"),
+        (args.registration == "ndt", "--registration ndt", "A12"),
+        (args.optimize_window, "--optimize-window", "A7-sparse"),
+        (args.dump, "--dump", "A13"),
+        (args.map, "--map", "A13"),
+    ]
+    for on, what, item in refused:
+        if on:
+            raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def cmd_slam(args):
+    """Run the slice; returns (slam, odometry, timer) for callers that drive
+    it in-process."""
+    from gorio_tpu.io.tum import save_tum
+    from gorio_tpu.utils.profiling import StageTimer
+
+    from .core.pointcloud import make_cloud
+    from .estimators.egovel import EgoVelConfig, estimate_ego_velocity
+    from .io.native import native
+    from .pipeline.odometry import OdometryConfig, ScanMatchingOdometry
+    from .pipeline.slam import RadarGraphSLAM, SLAMConfig
+
+    _check_slam_flags(args)
+    device = _device(args.device)
+    # full-f32 matmuls on the card: TF32 would cost the 6x6 solves and the
+    # H/b reductions what the TPU's bf16 passes cost them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    src = Path(args.dataset)
+    frames = sorted(src.glob("*.grf"))
+    if not frames:
+        sys.exit(f"no .grf frames in {src}")
+    imu = np.load(src / "imu.npz")
+    slam = RadarGraphSLAM(
+        SLAMConfig(
+            enable_loop_closure=False,
+            preint_mode=args.preint,
+            gyr_var=float(imu["gyr_var"]),
+            vel_var=float(imu["vel_var"]),
+        ),
+        device=device,
+    )
+    for t, g in zip(imu["gyr_t"], imu["gyr"]):
+        slam.push_imu(t, g)
+    # twist stream: the dataset's samples when it ships them, else the
+    # per-scan ego-velocity estimates below
+    online_twists = imu["vel_t"].size == 0
+    for t, v in zip(imu["vel_t"], imu["vel"]):
+        slam.push_twist(t, v)
+    gps_path = src / "gps.npz"
+    if gps_path.exists() and not args.no_gps:
+        gps_npz = np.load(gps_path)
+        for t, xyz, cov in zip(gps_npz["t"], gps_npz["xyz"], gps_npz["cov"]):
+            slam.push_gps(float(t), xyz, cov=cov)
+        print(f"pushed {len(gps_npz['t'])} GPS fixes")
+
+    odo = ScanMatchingOdometry(OdometryConfig(registration=args.registration))
+    timer = StageTimer()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    ds = native().NativePipelineDataset(frames, capacity=args.capacity)
+    n = 0
+    point_dist = np.zeros(100, np.int64)
+    for stamp, n_pts, packed in ds:
+        r = np.linalg.norm(packed[:n_pts, :3], axis=1)
+        point_dist += np.bincount(np.clip(r.astype(np.int64), 0, 99), minlength=100)
+        # copy out of the reader's reused buffer onto the device
+        frame = torch.tensor(packed[:n_pts], device=device)
+        cloud = make_cloud(
+            frame[:, :3], intensity=frame[:, 3], doppler=frame[:, 4], capacity=args.capacity
+        )
+        with timer.stage("ego_velocity"):
+            ego = estimate_ego_velocity(cloud, EgoVelConfig(), generator=gen)
+            v = ego.v.cpu().numpy()
+            if online_twists:
+                slam.push_twist(float(stamp), v)
+        with timer.stage("scan_matching"):
+            pose = odo.step(float(stamp), cloud, v)
+        with timer.stage("backend"):
+            slam.add_frame(float(stamp), cloud, pose)
+            if args.optimize_every and len(slam.keyframes) % args.optimize_every == 0:
+                slam.optimize()
+        n += 1
+    with timer.stage("final_optimize"):
+        slam.optimize()
+    stamps, poses = slam.trajectory()
+    save_tum(args.output, stamps, poses)
+    print(f"processed {n} frames -> {len(slam.keyframes)} keyframes, 0 loops; "
+          f"trajectory: {args.output}")
+    print(timer.report())
+    if args.timing_out:
+        with open(args.timing_out, "w") as fh:
+            json.dump(
+                {
+                    "stage_median_ms": {
+                        k: 1000 * statistics.median(v) for k, v in timer.samples.items()
+                    },
+                    "n_frames": n,
+                    "n_keyframes": len(slam.keyframes),
+                    "n_loops": 0,
+                    "loops": [],
+                    "lm_iterations": sum(st.iterations for st in odo.statuses),
+                    "keyframe_stamps": [round(float(s), 6) for s in stamps],
+                    "point_distribution": (point_dist / max(n, 1)).round(2).tolist(),
+                    "device": str(device),
+                },
+                fh,
+            )
+    if args.status_out:
+        with open(args.status_out, "w") as fh:
+            json.dump(
+                [
+                    {
+                        "converged": st.converged,
+                        "matching_error": st.matching_error,
+                        "inlier_fraction": st.inlier_fraction,
+                        "prediction_label": st.prediction_label,
+                        "relative_pose": np.asarray(st.relative_pose).tolist(),
+                        "prediction_error": (
+                            None if st.prediction_error is None
+                            else np.asarray(st.prediction_error).tolist()
+                        ),
+                        "used_prediction": st.used_prediction,
+                        "iterations": st.iterations,
+                    }
+                    for st in odo.statuses
+                ],
+                fh,
+            )
+        print(f"statuses: {args.status_out} ({len(odo.statuses)} frames)")
+    return slam, odo, timer
+
+
+def cmd_evaluate(args):
+    from gorio_tpu.io.tum import ate_rmse, load_tum, rte
+
+    es, ep = load_tum(args.estimate)
+    gs, gp = load_tum(args.groundtruth)
+    result = {"ate_rmse_m": ate_rmse(es, ep, gs, gp), "rte_m": rte(es, ep, gs, gp),
+              "n_poses": len(es)}
+    print(json.dumps(result))
+    return result
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="gorio_tpu_torch", description=__doc__)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    s = sub.add_parser("simulate")
+    s.add_argument("--circuit", action="store_true",
+                   help="closed-loop trajectory (revisits the start)")
+    s.add_argument("--laps", type=float, default=1.0)
+    s.add_argument("--figure8", action="store_true")
+    s.add_argument("--elev-amp", type=float, default=0.0, dest="elev_amp")
+    s.add_argument("--output", required=True)
+    s.add_argument("--duration", type=float, default=20.0)
+    s.add_argument("--rate", type=float, default=5.0)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--landmarks", type=int, default=9000,
+                   help="landmark count per ±60 m world tile (scaled with the extent)")
+    s.add_argument("--capacity", type=int, default=2048)
+    s.add_argument("--stops", type=int, default=0)
+    s.add_argument("--dynamic", type=int, default=0)
+    s.add_argument("--gps", action="store_true")
+    s.add_argument("--gps-rate", type=float, default=2.0)
+    s.add_argument("--gps-noise-xy", type=float, default=0.5)
+    s.add_argument("--fov-azimuth", type=float, default=56.5)
+    s.add_argument("--fov-elevation", type=float, default=22.5)
+    s.add_argument("--omni", action="store_true")
+    s.set_defaults(fn=cmd_simulate)
+
+    s = sub.add_parser("slam")
+    s.add_argument("--config", default=None)
+    s.add_argument("--floor", action="store_true")
+    s.add_argument("--optimize-window", type=int, default=0)
+    s.add_argument("--fused", action="store_true")
+    s.add_argument("--status-out", default=None)
+    s.add_argument("--preprocess", action="store_true")
+    s.add_argument("--dataset", required=True)
+    s.add_argument("--output", default="trajectory.tum")
+    s.add_argument("--registration", default="apdgicp", choices=["apdgicp", "gicp", "ndt"])
+    s.add_argument("--preint", default="lpm", choices=["lpm", "ugpm"])
+    s.add_argument("--capacity", type=int, default=2048)
+    s.add_argument("--optimize-every", type=int, default=0)
+    s.add_argument("--no-loops", action="store_true")
+    s.add_argument("--no-gps", action="store_true")
+    s.add_argument("--timing-out", default=None)
+    s.add_argument("--dump", default=None)
+    s.add_argument("--map", default=None)
+    s.add_argument("--map-resolution", type=float, default=0.2)
+    s.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    s.set_defaults(fn=cmd_slam)
+
+    s = sub.add_parser("evaluate")
+    s.add_argument("estimate")
+    s.add_argument("groundtruth")
+    s.set_defaults(fn=cmd_evaluate)
+
+    args = p.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,74 @@
+"""Carry the JAX package's state into the port.
+
+This system has no weights: its state is configs, clouds and graphs. Each
+converter takes the JAX object as numpy arrays or `._asdict()` dicts (a JAX
+NamedTuple of arrays works as is) and returns the port's counterpart, so a
+parity test can hand both sides the same thing.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.pointcloud import PointCloud
+from .graph.factors import (
+    BetweenFactors,
+    GraphData,
+    GroundPlaneFactors,
+    PointPriorFactors,
+    PriorFactors,
+    QuatPriorFactors,
+    VecPriorFactors,
+)
+
+_FAMILIES = (BetweenFactors, PriorFactors, PointPriorFactors, QuatPriorFactors,
+             VecPriorFactors, GroundPlaneFactors)  # in GraphData's field order
+
+
+def _fields(obj) -> dict:
+    return obj._asdict() if hasattr(obj, "_asdict") else dict(obj)
+
+
+def cloud_from_numpy(cloud, device=None) -> PointCloud:
+    """JAX `PointCloud` (or a dict of its arrays) -> port `PointCloud`."""
+    d = _fields(cloud)
+    return PointCloud(**{k: torch.as_tensor(np.array(d[k]), device=device)
+                         for k in PointCloud._fields})
+
+
+def graph_from_numpy(graph, device=None) -> GraphData:
+    """A frozen JAX `GraphData` (or nested dicts of its arrays) -> port
+    `GraphData`; factor indices become int64."""
+    g = _fields(graph)
+    families = []
+    for name, cls in zip(GraphData._fields, _FAMILIES):
+        fam = _fields(g[name])
+        families.append(cls(**{
+            k: torch.as_tensor(np.array(fam[k], dtype=np.int64 if k in ("i", "j") else None),
+                               device=device)
+            for k in cls._fields
+        }))
+    return GraphData(*families)
+
+
+def config_from_dict(cls, data):
+    """A JAX config (NamedTuple or dict, nested configs included) -> the
+    port's config class `cls`. Nested configs of ported modules are
+    converted recursively; configs of modules the port does not have yet
+    (NDT, ground segmentation, UGPM, loop closure) are kept as plain dicts.
+    Unknown field names raise."""
+    d = _fields(data)
+    unknown = set(d) - set(cls._fields)
+    if unknown:
+        raise ValueError(f"{cls.__name__} has no fields {sorted(unknown)}")
+    kw = {}
+    for k, v in d.items():
+        default = cls._field_defaults.get(k)
+        if isinstance(default, tuple) and hasattr(default, "_fields"):
+            kw[k] = config_from_dict(type(default), v)
+        elif hasattr(v, "_asdict"):
+            kw[k] = dict(v._asdict())
+        else:
+            kw[k] = v
+    return cls(**kw)

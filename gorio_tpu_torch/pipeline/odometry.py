@@ -1,0 +1,323 @@
+"""Scan-matching odometry front-end.
+
+Port of `ScanMatchingOdometry.step` from `gorio_tpu/pipeline/odometry.py`
+(`ScanMatchingOdometryNodelet`): per (ego-velocity, cloud) pair, align the
+new scan to the current keyframe scan from the cumulative ego-velocity
+guess, sanity-threshold the result against that prediction (with the IMU
+fallback), and refresh the keyframe target on the delta gates. The
+registration runs on the clouds' device; the state machine runs on the host
+in float64 numpy.
+
+Not ported yet: the fused single-dispatch frontend (`step_fused`, ROADMAP
+A10), NDT registration (A12) and scan-to-submap mode (A10).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..core.pointcloud import PointCloud
+from ..estimators.egovel import EgoVelConfig
+from ..ops.nn import nn1_best
+from ..registration.gicp import GICPConfig, _transform, gicp_align
+
+
+class OdometryConfig(NamedTuple):
+    """Defaults mirror the nodelet params (`:116-127`)."""
+
+    keyframe_delta_trans: float = 0.25
+    keyframe_delta_angle: float = 0.15
+    keyframe_delta_time: float = 1.0
+    max_acceptable_trans: float = 1.0
+    max_acceptable_angle: float = 1.0  # rad
+    max_diff_trans: float = 1.0
+    max_diff_angle: float = 1.0
+    max_egovel_cum: float = 1.0
+    enable_imu_fusion: bool = False
+    imu_fusion_ratio: float = 0.1
+    enable_imu_thresholding: bool = True
+    enable_imu_frontend: bool = False
+    compute_inlier_fraction: bool = True
+    inlier_max_correspondence_dist: float = 0.5
+    scan_period: float = 0.1
+    registration: str = "apdgicp"  # "apdgicp" | "gicp" here; "ndt" is ROADMAP A12
+    gicp: GICPConfig = GICPConfig()
+    ndt: Optional[dict] = None  # NDTConfig fields, for the NDT port (ROADMAP A12)
+    egovel: EgoVelConfig = EgoVelConfig()
+    groundseg: Optional[dict] = None  # GroundSegConfig fields (ROADMAP A10)
+    enable_scan_to_map: bool = False  # scan-to-submap mode (ROADMAP A10)
+    max_submap_frames: int = 5
+    submap_resolution: float = 0.25
+    submap_capacity: int = 8192
+
+
+def check_supported(cfg: OdometryConfig):
+    """Raise for the parts of the config that need an unported module."""
+    if cfg.registration not in ("apdgicp", "gicp"):
+        raise NotImplementedError(
+            f"registration={cfg.registration!r} is ported with NDT/VGICP (ROADMAP A12)"
+        )
+    if cfg.enable_scan_to_map:
+        raise NotImplementedError("scan-to-map odometry is ported with ROADMAP A10")
+
+
+def _rot_angle(R) -> float:
+    """Geodesic angle of a rotation matrix (host-side numpy)."""
+    return float(np.arccos(np.clip((np.trace(R) - 1.0) * 0.5, -1.0, 1.0)))
+
+
+def _r2ypr(R):
+    """ZYX Euler (yaw, pitch, roll) of R; `ros_utils.hpp:29-42`."""
+    y = np.arctan2(R[1, 0], R[0, 0])
+    p = np.arctan2(-R[2, 0], R[0, 0] * np.cos(y) + R[1, 0] * np.sin(y))
+    r = np.arctan2(
+        R[0, 2] * np.sin(y) - R[1, 2] * np.cos(y),
+        -R[0, 1] * np.sin(y) + R[1, 1] * np.cos(y),
+    )
+    return y, p, r
+
+
+def _rpy_to_mat(roll, pitch, yaw):
+    """R = Rz(yaw) @ Ry(pitch) @ Rx(roll)."""
+    cr, sr = np.cos(roll), np.sin(roll)
+    cp, sp = np.cos(pitch), np.sin(pitch)
+    cy, sy = np.cos(yaw), np.sin(yaw)
+    Rz = np.array([[cy, -sy, 0], [sy, cy, 0], [0, 0, 1.0]])
+    Ry = np.array([[cp, 0, sp], [0, 1.0, 0], [-sp, 0, cp]])
+    Rx = np.array([[1.0, 0, 0], [0, cr, -sr], [0, sr, cr]])
+    return Rz @ Ry @ Rx
+
+
+def _inlier_fraction(src_xyz, src_mask, tgt_xyz, tgt_mask, T, max_dist):
+    """`publish_scan_matching_status` inlier count (`:677-689`): aligned
+    source points whose 1-NN in the target is within max_dist."""
+    moved, _ = _transform(src_xyz, T)
+    _, d2 = nn1_best(moved, tgt_xyz, ref_mask=tgt_mask)
+    inl = (d2 < max_dist * max_dist) & src_mask
+    return torch.sum(inl.to(d2.dtype)) / torch.clamp(torch.sum(src_mask.to(d2.dtype)), min=1)
+
+
+class OdometryStatus(NamedTuple):
+    """`ScanMatchingStatus.msg` (filled at `:666-703`)."""
+
+    converged: bool
+    matching_error: float
+    inlier_fraction: float  # NaN if off
+    relative_pose: np.ndarray
+    prediction_error: Optional[np.ndarray]
+    used_prediction: bool
+    prediction_label: str = ""
+    iterations: int = 0  # outer LM iterations of the align
+
+
+@dataclass
+class ScanMatchingOdometry:
+    cfg: OdometryConfig = OdometryConfig()
+    odom: np.ndarray = field(default_factory=lambda: np.eye(4))
+    keyframe_pose: np.ndarray = field(default_factory=lambda: np.eye(4))
+    keyframe_cloud: Optional[PointCloud] = None
+    keyframe_stamp: float = 0.0
+    prev_trans_s2s: np.ndarray = field(default_factory=lambda: np.eye(4))
+    egovel_cum: np.ndarray = field(default_factory=lambda: np.eye(4))
+    last_stamp: Optional[float] = None
+    statuses: list = field(default_factory=list)
+    # IMU attitude queue [(t, roll, pitch, R)] + world->map rotation
+    _imu_rp: list = field(default_factory=list)
+    _global_orient: Optional[np.ndarray] = None
+    _msf_pose: Optional[tuple] = None
+    _msf_pose_after_update: Optional[tuple] = None
+    _prev_frame_stamp: Optional[float] = None
+    _last_radar_delta: np.ndarray = field(default_factory=lambda: np.eye(4))
+
+    def __post_init__(self):
+        check_supported(self.cfg)
+
+    def push_msf_pose(self, t: float, T: np.ndarray, after_update: bool = False) -> None:
+        """Feed an externally fused pose (`/msf_core/pose[_after_update]`)."""
+        if after_update:
+            self._msf_pose_after_update = (float(t), np.asarray(T, np.float64))
+        else:
+            self._msf_pose = (float(t), np.asarray(T, np.float64))
+
+    def _msf_delta(self) -> tuple:
+        """delta = pose_after_update^-1 @ pose, valid only when both stamps
+        postdate the current keyframe; returns (4x4, label)."""
+        if (
+            not self.cfg.enable_imu_frontend
+            or self._msf_pose is None
+            or self._msf_pose_after_update is None
+        ):
+            return np.eye(4), ""
+        t1, pose = self._msf_pose
+        t0, pose0 = self._msf_pose_after_update
+        if t1 <= self.keyframe_stamp or t0 <= self.keyframe_stamp:
+            return np.eye(4), ""
+        return np.linalg.inv(pose0) @ pose, "imu"
+
+    def push_imu(self, t: float, quat_wxyz) -> None:
+        """Feed an IMU orientation sample (world frame, [w,x,y,z])."""
+        w, x, y, z = (float(v) for v in quat_wxyz)
+        R = np.array(
+            [
+                [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+                [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+                [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+            ]
+        )
+        _, pitch, roll = _r2ypr(R)
+        if self._global_orient is None:
+            self._global_orient = _rpy_to_mat(roll, pitch, 0.0)
+        self._imu_rp.append((t, roll, pitch, R))
+        if len(self._imu_rp) > 200:  # imuQueLength
+            del self._imu_rp[: len(self._imu_rp) - 200]
+
+    def _transform_update(self, T: np.ndarray, stamp: float) -> np.ndarray:
+        """Loose IMU roll/pitch fusion (`transformUpdate`, `:288-342`)."""
+        if not self._imu_rp or self._global_orient is None:
+            return T
+        t_q = stamp + self.cfg.scan_period
+        ts = [s[0] for s in self._imu_rp]
+        i = int(np.searchsorted(ts, t_q))
+        if i >= len(ts):
+            roll_i, pitch_i = self._imu_rp[-1][1], self._imu_rp[-1][2]
+        elif i == 0:
+            roll_i, pitch_i = self._imu_rp[0][1], self._imu_rp[0][2]
+        else:
+            t0, r0, p0 = self._imu_rp[i - 1][:3]
+            t1, r1, p1 = self._imu_rp[i][:3]
+            a = (t_q - t0) / max(t1 - t0, 1e-9)
+            roll_i = (1 - a) * r0 + a * r1
+            pitch_i = (1 - a) * p0 + a * p1
+        yaw_o, pitch_o, roll_o = _r2ypr(T[:3, :3])
+        imu_rot = _rpy_to_mat(roll_i, pitch_i, yaw_o)
+        _, pitch_t, roll_t = _r2ypr(self._global_orient.T @ imu_rot)
+        k = self.cfg.imu_fusion_ratio
+        fused = _rpy_to_mat((1 - k) * roll_o + k * roll_t, (1 - k) * pitch_o + k * pitch_t, yaw_o)
+        out = T.copy()
+        out[:3, :3] = fused
+        return out
+
+    def _imu_R_at(self, t: float):
+        """Orientation sample nearest to stamp `t` (`get_closest_imu`)."""
+        ts = [s[0] for s in self._imu_rp]
+        i = int(np.searchsorted(ts, t))
+        if i >= len(ts):
+            i = len(ts) - 1
+        elif i > 0 and abs(ts[i - 1] - t) < abs(ts[i] - t):
+            i -= 1
+        return self._imu_rp[i][3]
+
+    def _imu_fallback_delta(self, stamp: float, egovel_trans: np.ndarray):
+        """IMU-rotation + egovel-translation replacement for a rejected
+        transform (`:511-550`); None without an IMU orientation stream."""
+        if not self.cfg.enable_imu_thresholding or len(self._imu_rp) < 2:
+            return None
+        if self._prev_frame_stamp is None:
+            return None
+        rot_imu = self._imu_R_at(self._prev_frame_stamp).T @ self._imu_R_at(stamp)
+        # Eigen eulerAngles(0,1,2): R = Rx(a) Ry(b) Rz(c)
+        roll_imu = np.arctan2(-rot_imu[1, 2], rot_imu[2, 2])
+        pitch_imu = np.arcsin(np.clip(rot_imu[0, 2], -1.0, 1.0))
+        rd = self._last_radar_delta
+        yaw_rd = np.arctan2(-rd[0, 1], rd[0, 0])
+        mat_est = np.eye(4)
+        mat_est[:3, :3] = _rpy_to_mat(roll_imu, pitch_imu, yaw_rd)
+        mat_est[:3, 3] = egovel_trans
+        return mat_est
+
+    def _align(self, source: PointCloud, target: PointCloud, guess):
+        cfg = self.cfg.gicp._replace(mode=self.cfg.registration)
+        init_T = torch.as_tensor(guess, device=source.xyz.device)
+        return gicp_align(source, target, init_T=init_T, cfg=cfg)
+
+    def step(self, stamp: float, cloud: PointCloud, ego_vel: np.ndarray) -> np.ndarray:
+        """Process one frame; returns the 4x4 odometry pose (map<-body)."""
+        if self.keyframe_cloud is None:
+            self.keyframe_cloud = cloud
+            self.keyframe_stamp = stamp
+            self.last_stamp = stamp
+            return self.odom.copy()
+
+        # cumulative ego-velocity delta since the last frame (`:356-365`)
+        dt = stamp - self.last_stamp
+        self._prev_frame_stamp = self.last_stamp
+        self.last_stamp = stamp
+        step_T = np.eye(4)
+        step_T[:3, 3] = np.asarray(ego_vel) * dt
+        egovel_cum = self.egovel_cum @ step_T
+        if np.linalg.norm(egovel_cum[:3, 3]) > self.cfg.max_egovel_cum:
+            egovel_cum = self.egovel_cum  # guard (`:364`)
+        self.egovel_cum = egovel_cum
+
+        msf_delta, msf_label = self._msf_delta()
+        guess = self.prev_trans_s2s @ self.egovel_cum @ msf_delta
+        res = self._align(cloud, self.keyframe_cloud, guess)
+        T = res.T.cpu().numpy()
+        if self.cfg.compute_inlier_fraction:
+            inlier_frac = float(
+                _inlier_fraction(
+                    cloud.xyz, cloud.mask, self.keyframe_cloud.xyz, self.keyframe_cloud.mask,
+                    res.T, self.cfg.inlier_max_correspondence_dist,
+                )
+            )
+        else:
+            inlier_frac = float("nan")
+
+        # sanity thresholding vs the ego-velocity prediction (`:497-570`)
+        delta = np.linalg.inv(self.prev_trans_s2s) @ T
+        dx = float(np.linalg.norm(delta[:3, 3]))
+        da = _rot_angle(delta[:3, :3])
+        pred = self.prev_trans_s2s @ self.egovel_cum
+        diff = np.linalg.inv(pred) @ T
+        ddx = float(np.linalg.norm(diff[:3, 3]))
+        dda = _rot_angle(diff[:3, :3])
+        used_prediction = False
+        converged = bool(res.converged)
+        # NaN-safe: a non-finite T must not pass the threshold checks
+        if (
+            not converged
+            or not np.isfinite(T).all()
+            or dx > self.cfg.max_acceptable_trans
+            or da > self.cfg.max_acceptable_angle
+            or ddx > self.cfg.max_diff_trans
+            or dda > self.cfg.max_diff_angle
+        ):
+            fb = self._imu_fallback_delta(stamp, self.egovel_cum[:3, 3])
+            T = self.prev_trans_s2s @ fb if fb is not None else pred
+            used_prediction = True
+        self._last_radar_delta = delta
+
+        self.statuses.append(
+            OdometryStatus(
+                converged=converged,
+                matching_error=float(res.error),
+                inlier_fraction=inlier_frac,
+                relative_pose=delta,
+                prediction_error=diff,
+                used_prediction=used_prediction,
+                prediction_label=msf_label,
+                iterations=int(res.iterations),
+            )
+        )
+
+        self.prev_trans_s2s = T
+        self.egovel_cum = np.eye(4)
+        self.odom = self.keyframe_pose @ T
+
+        # keyframe refresh (`:578-600`)
+        if (
+            float(np.linalg.norm(T[:3, 3])) > self.cfg.keyframe_delta_trans
+            or _rot_angle(T[:3, :3]) > self.cfg.keyframe_delta_angle
+            or stamp - self.keyframe_stamp > self.cfg.keyframe_delta_time
+        ):
+            if self.cfg.enable_imu_fusion:
+                self.odom = self._transform_update(self.odom, stamp)
+            self.keyframe_pose = self.odom.copy()
+            self.keyframe_stamp = stamp
+            self.prev_trans_s2s = np.eye(4)
+            self.keyframe_cloud = cloud
+        return self.odom.copy()

@@ -1,0 +1,316 @@
+"""Radar graph-SLAM back end.
+
+Port of `RadarGraphSLAM` from `gorio_tpu/pipeline/slam.py`
+(`RadarGraphSlamNodelet`): keyframe selection, LPM velocity preintegration
+between keyframes, the pose graph (odometry between-factors with
+fitness-based information, preintegration between-factors, GPS priors),
+and its dense LM solve. The graph is built on the host and solved on
+`device`.
+
+Not ported yet, and refused with NotImplementedError rather than ignored:
+loop closure (ROADMAP A8), UGPM preintegration (A11), the floor constraint
+(A10), fixed-lag windows and graphs above 128 padded poses, which need the
+block-sparse solver (A7-sparse).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..core.pointcloud import PointCloud
+from ..graph.graph import PoseGraph
+from ..graph.solver import SolveConfig, optimize_graph
+from ..loopclosure.information import InformationConfig, calc_information_matrix
+from ..preintegration.lpm import lpm_preintegrate
+from .keyframes import KeyFrame, KeyframeUpdater
+
+
+class SLAMConfig(NamedTuple):
+    keyframe_delta_trans: float = 0.25
+    keyframe_delta_angle: float = 0.15
+    max_keyframes_per_update: int = 10
+    enable_preintegration: bool = True
+    preint_mode: str = "lpm"  # "lpm" here; "ugpm" is ROADMAP A11
+    preint_grid_n: int = 256
+    preint_window_samples: int = 256  # fixed gyro-sample count per window
+    preint_vel_samples: int = 64
+    ugpm: Optional[dict] = None  # UGPMConfig fields, for the UGPM port (ROADMAP A11)
+    gyr_var: float = 1e-4
+    vel_var: float = 1e-3
+    enable_loop_closure: bool = True  # the port refuses True until ROADMAP A8
+    loop: Optional[dict] = None  # LoopConfig fields, for the loop-closure port (A8)
+    info: InformationConfig = InformationConfig()
+    loop_robust_delta: float = 1.0
+    gps_xy_info: float = 25.0
+    gps_z_info: float = 4.0
+    # GPS edge gate chain (`flush_gps_queue`, `radar_graph_slam_nodelet.cpp:
+    # 1248-1327`)
+    gps_edge_intervals: int = 10
+    max_gps_edge_stddev_xy: float = 1.0
+    max_gps_edge_stddev_z: float = 2.0
+    gps_residual_skip_dist: float = 5.0
+    gps_robust_delta: float = np.inf
+    anchor_info: float = 1e6
+    solve: SolveConfig = SolveConfig(max_iterations=30)
+    enable_floor_constraint: bool = False  # ROADMAP A10
+    floor_normal_info: float = 100.0
+    floor_distance_info: float = 100.0
+    floor_robust_delta: float = 1.0
+    floor_min_ground_points: int = 30
+    floor_max_tilt_nz: float = 0.8
+    # pad the pose count to the next power of two with unit-prior dummy poses
+    # (the JAX package's compile buckets; kept so the dense/sparse switch
+    # falls at the same keyframe count)
+    pad_poses_pow2: bool = True
+    solve_dense_max_dim: int = 768
+
+
+def check_supported(cfg: SLAMConfig):
+    """Raise for the parts of the config that need an unported module."""
+    if cfg.enable_loop_closure:
+        raise NotImplementedError(
+            "loop closure is ported with ROADMAP A8; run with loops disabled (--no-loops)"
+        )
+    if cfg.preint_mode != "lpm":
+        raise NotImplementedError(f"preint_mode={cfg.preint_mode!r} is ported with ROADMAP A11")
+    if cfg.enable_floor_constraint:
+        raise NotImplementedError("the floor constraint is ported with ROADMAP A10")
+
+
+class GPSMeasurement(NamedTuple):
+    stamp: float
+    xyz: np.ndarray  # world/UTM-aligned position
+    has_z: bool
+    cov: Optional[np.ndarray] = None  # (3,) position covariance diagonal
+
+
+@dataclass
+class RadarGraphSLAM:
+    cfg: SLAMConfig = SLAMConfig(enable_loop_closure=False)
+    device: torch.device = torch.device("cpu")
+    keyframes: list = field(default_factory=list)
+    updater: KeyframeUpdater = None
+    gyr_t: list = field(default_factory=list)
+    gyr: list = field(default_factory=list)
+    vel_t: list = field(default_factory=list)
+    vel: list = field(default_factory=list)
+    gps_queue: list = field(default_factory=list)
+    trans_odom2map: np.ndarray = field(default_factory=lambda: np.eye(4))
+    _last_gps_edge_index: int = -(10**9)
+
+    def __post_init__(self):
+        check_supported(self.cfg)
+        self.device = torch.device(self.device)
+        if self.updater is None:
+            self.updater = KeyframeUpdater(
+                delta_trans=self.cfg.keyframe_delta_trans,
+                delta_angle=self.cfg.keyframe_delta_angle,
+                delta_time=np.inf,
+            )
+
+    # ---- measurement ingestion ------------------------------------------
+    def push_imu(self, t: float, gyro):
+        self.gyr_t.append(float(t))
+        self.gyr.append(np.asarray(gyro))
+
+    def push_twist(self, t: float, vel):
+        self.vel_t.append(float(t))
+        self.vel.append(np.asarray(vel))
+
+    def push_gps(self, t: float, xyz, has_z: bool = True, cov=None):
+        self.gps_queue.append(
+            GPSMeasurement(t, np.asarray(xyz), has_z, None if cov is None else np.asarray(cov))
+        )
+
+    # ---- keyframe path (`cloud_handler_callback`, `:626-743`) ------------
+    def add_frame(
+        self,
+        stamp: float,
+        cloud: PointCloud,
+        odom_pose: np.ndarray,
+        floor_coeffs: Optional[np.ndarray] = None,
+        altitude: Optional[float] = None,
+    ) -> bool:
+        if not self.updater.decide(odom_pose, stamp):
+            return False
+        kf = KeyFrame(
+            index=len(self.keyframes),
+            stamp=stamp,
+            odom_scan2scan=np.asarray(odom_pose),
+            accum_distance=self.updater.accum_distance,
+            cloud=cloud,
+            floor_coeffs=None if floor_coeffs is None else np.asarray(floor_coeffs),
+            altitude=None if altitude is None else float(altitude),
+        )
+        if self.cfg.enable_preintegration and self.keyframes:
+            meas = self._preintegrate(self.keyframes[-1].stamp, stamp)
+            if meas is not None:
+                kf.trans_integrated, kf.preint_cov = meas
+        self.keyframes.append(kf)
+        return True
+
+    def _preintegrate(self, t0: float, t1: float):
+        """LPM preintegration over [t0, t1] (`preIntegrationTransform`,
+        `radar_graph_slam_nodelet.cpp:363-533`): the window start is clamped
+        to at most 2 s before the end, the streams are read from 0.2 s
+        before it, in fixed sample budgets padded by repeating the last
+        sample. Returns (T (4, 4), cov (6, 6)) or None."""
+        gyr_t = np.asarray(self.gyr_t)
+        vel_t = np.asarray(self.vel_t)
+        if gyr_t.size < 4 or vel_t.size < 4:
+            return None
+        if t1 - t0 > 2.0:
+            t0 = t1 - 2.0  # `:424-426`
+        pad = 0.2
+        G = self.cfg.preint_window_samples
+        V = self.cfg.preint_vel_samples
+        i_g = int(np.searchsorted(gyr_t, t0 - pad))
+        i_v = int(np.searchsorted(vel_t, t0 - pad))
+        g_sl = slice(max(0, min(i_g, gyr_t.size - G)), None)
+        v_sl = slice(max(0, min(i_v, vel_t.size - V)), None)
+        gt = gyr_t[g_sl][:G]
+        vt = vel_t[v_sl][:V]
+        if gt.size < 4 or vt.size < 4 or gt[-1] < t1 or vt[-1] < t1:
+            return None
+        gd = np.stack(self.gyr)[g_sl][:G]
+        vd = np.stack(self.vel)[v_sl][:V]
+        if gt.size < G:
+            rep = G - gt.size
+            gt = np.concatenate([gt, gt[-1] + 1e-3 * (1 + np.arange(rep))])
+            gd = np.concatenate([gd, np.repeat(gd[-1:], rep, axis=0)])
+        if vt.size < V:
+            rep = V - vt.size
+            vt = np.concatenate([vt, vt[-1] + 1e-3 * (1 + np.arange(rep))])
+            vd = np.concatenate([vd, np.repeat(vd[-1:], rep, axis=0)])
+
+        def dev(a):
+            return torch.as_tensor(np.asarray(a, np.float64), device=self.device)
+
+        meas = lpm_preintegrate(
+            dev(gt), dev(gd), dev(vt), dev(vd), float(t0), dev([t1]),
+            self.cfg.gyr_var, self.cfg.vel_var, grid_n=self.cfg.preint_grid_n,
+            with_jacobians=False,
+        )
+        out = torch.cat([meas.delta_R[0].reshape(-1), meas.delta_p[0], meas.cov[0].reshape(-1)])
+        out = out.cpu().numpy()  # one device->host read per keyframe
+        T = np.eye(4)
+        T[:3, :3] = out[:9].reshape(3, 3)
+        T[:3, 3] = out[9:12]
+        return T, out[12:48].reshape(6, 6)
+
+    def _flush_gps_queue(self, est, keyframes) -> None:
+        """Associate queued GPS fixes to keyframes through the reference's
+        gate chain (`flush_gps_queue`, `radar_graph_slam_nodelet.cpp:
+        1248-1327`): keyframe spacing, closest fix within 0.2 s, covariance
+        gate, one `utm_coord` per keyframe, and the 5 m drift gate. Consumed
+        fixes older than the newest keyframe are dropped."""
+        if not self.gps_queue or not keyframes:
+            return
+        cfg = self.cfg
+        q_stamps = np.asarray([g.stamp for g in self.gps_queue])
+        last_idx = self._last_gps_edge_index
+        for kf in keyframes:
+            if kf.index - last_idx < cfg.gps_edge_intervals or kf.utm_coord is not None:
+                continue
+            gps = self.gps_queue[int(np.argmin(np.abs(q_stamps - kf.stamp)))]
+            if abs(gps.stamp - kf.stamp) > 0.2:
+                continue
+            if gps.cov is not None:
+                cx, cy, cz = (float(v) for v in gps.cov)
+                if (
+                    cx > cfg.max_gps_edge_stddev_xy
+                    or cy > cfg.max_gps_edge_stddev_xy
+                    or cz > cfg.max_gps_edge_stddev_z
+                ):
+                    continue
+            kf.utm_coord = np.asarray(gps.xyz)
+            kf._gps_has_z = bool(gps.has_z) and np.isfinite(gps.xyz[2])
+            if np.linalg.norm(est(kf)[:3, 3] - np.asarray(gps.xyz)) < cfg.gps_residual_skip_dist:
+                kf._gps_edge = False
+                continue
+            if gps.cov is not None:
+                info = 1.0 / np.maximum(np.asarray(gps.cov, float), 1e-12)
+            else:
+                info = np.asarray([cfg.gps_xy_info, cfg.gps_xy_info, cfg.gps_z_info])
+            kf._gps_edge = True
+            kf._gps_info = info
+            last_idx = kf.index
+        self._last_gps_edge_index = last_idx
+        newest = keyframes[-1].stamp
+        self.gps_queue = [g for g in self.gps_queue if g.stamp > newest]
+
+    # ---- optimization cycle (`optimization_timer_callback`, `:750-834`) --
+    def optimize(self, window: Optional[int] = None) -> Optional[np.ndarray]:
+        """One graph-optimization cycle over every keyframe (dense LM)."""
+        if window:
+            raise NotImplementedError(
+                "fixed-lag windows are ported with the block-sparse solver (ROADMAP A7-sparse)"
+            )
+        keyframes = list(self.keyframes)
+        if len(keyframes) < 2:
+            return None
+
+        def est(kf):
+            return kf.optimized_pose if kf.optimized_pose is not None else kf.odom_scan2scan
+
+        g = PoseGraph()
+        for kf in keyframes:
+            g.add_pose(est(kf))
+        g.add_prior(0, keyframes[0].odom_scan2scan, info=np.eye(6) * self.cfg.anchor_info)
+        for k in range(1, len(keyframes)):
+            prev, curr = keyframes[k - 1], keyframes[k]
+            rel = np.linalg.inv(prev.odom_scan2scan) @ curr.odom_scan2scan
+            if curr.edge_info is None:
+                info, _ = calc_information_matrix(
+                    curr.cloud, prev.cloud, torch.as_tensor(rel, device=self.device), self.cfg.info
+                )
+                curr.edge_info = info.cpu().numpy()
+            g.add_between(k - 1, k, rel, info=curr.edge_info)
+            if curr.trans_integrated is not None:
+                # stddev-diag information from the preint covariance (`:596-612`)
+                var = np.clip(np.diag(curr.preint_cov), 1e-6, None)
+                g.add_between(k - 1, k, curr.trans_integrated, info=np.diag(1.0 / var))
+
+        self._flush_gps_queue(est, keyframes)
+        for k, kf in enumerate(keyframes):
+            if kf.utm_coord is None or not getattr(kf, "_gps_edge", False):
+                continue
+            axes = (1, 1, 1) if kf._gps_has_z else (1, 1, 0)
+            g.add_point_prior(
+                k, kf.utm_coord, info=np.diag(kf._gps_info), axes=axes,
+                robust_delta=self.cfg.gps_robust_delta,
+            )
+
+        if self.cfg.pad_poses_pow2:
+            K_real = len(g.poses)
+            K_pad = max(4, 1 << (K_real - 1).bit_length())
+            for _ in range(K_pad - K_real):
+                g.add_prior(g.add_pose(np.eye(4)), np.eye(4), info=1.0)
+        if len(g.poses) * 6 > self.cfg.solve_dense_max_dim:
+            raise NotImplementedError(
+                f"{len(g.poses)} padded poses need the block-sparse solver (ROADMAP A7-sparse)"
+            )
+        poses0, graph = g.freeze(device=self.device)
+        res = optimize_graph(poses0, graph, self.cfg.solve)
+        opt = res.poses.cpu().numpy()[: len(keyframes)]  # drop the padding dummies
+        for k, kf in enumerate(keyframes):
+            kf.optimized_pose = opt[k]
+        last = keyframes[-1]
+        self.trans_odom2map = last.optimized_pose @ np.linalg.inv(last.odom_scan2scan)
+        return opt
+
+    # ---- outputs ---------------------------------------------------------
+    def trajectory(self):
+        """(stamps, poses) using optimized poses where available."""
+        stamps = np.asarray([kf.stamp for kf in self.keyframes])
+        poses = np.stack(
+            [
+                kf.optimized_pose if kf.optimized_pose is not None else kf.odom_scan2scan
+                for kf in self.keyframes
+            ]
+        )
+        return stamps, poses

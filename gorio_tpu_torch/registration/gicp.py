@@ -1,0 +1,371 @@
+"""GICP-family registration: FastGICP / FastAPDGICP / point-to-point ICP.
+
+Port of `gorio_tpu/registration/gicp.py`: kNN covariance estimation,
+per-iteration 1-NN correspondences (the `nn1_select` kernel), the APD polar
+measurement covariance, and the Mahalanobis residual + H/b reduction in
+closed component form, feeding the LM loop in `lsq.py`.
+
+Precision follows the JAX package under x64: clouds stay in their own dtype
+(float32 from the sensor), the pose decides the dtype of the linearization
+(float64 host poses), and the 1-NN kernel computes in float32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from ..core import lie
+from ..core.linalg import inv3, sym_eigh3
+from ..core.pointcloud import PointCloud
+from ..ops.nn import nn1_best, nn1_select
+from .knn import knn
+from .lsq import LMConfig, LMResult, lm_optimize
+
+
+class GICPConfig(NamedTuple):
+    k_correspondences: int = 20
+    # `reg_max_correspondence_distance` (registrations.cpp:44): correspondences
+    # beyond it are dropped
+    max_correspondence_distance: float = 2.5
+    # APD polar covariance parameters (`fast_apdgicp.hpp:116-118`)
+    dist_var: float = 0.86
+    azimuth_var_deg: float = 0.5
+    elevation_var_deg: float = 1.0
+    plane_eps: float = 1e-3  # PLANE regularization smallest eigenvalue
+    lm: LMConfig = LMConfig()
+    mode: str = "apdgicp"  # "gicp" | "apdgicp" | "icp"
+    # neighbourhood covariance estimator: "knn" here; "rbf" belongs to the
+    # VGICP port (ROADMAP A12)
+    covariance_method: str = "knn"
+    rbf_kernel_width: float = 0.25
+    rbf_max_dist: float = 3.0
+
+
+def knn_covariances(xyz, mask, k: int = 20, plane_eps: float = 1e-3, block: int = 512):
+    """Per-point neighbourhood covariances with PLANE regularization
+    (`fast_apdgicp_impl.hpp:351-411`): kNN -> covariance -> spectrum clamped
+    to (eps, 1, 1) in the eigenbasis. Returns (cov (N, 3, 3), geo_w (N,))."""
+    idx, _ = knn(xyz, xyz, k, ref_mask=mask, block=block)
+    neigh = xyz[idx]  # (N, k, 3)
+    centered = neigh - torch.mean(neigh, dim=1, keepdim=True)
+    cov = torch.einsum("nki,nkj->nij", centered, centered) / k
+    lam, V = sym_eigh3(cov)  # ascending
+    values = torch.tensor([plane_eps, 1.0, 1.0], dtype=xyz.dtype, device=xyz.device)
+    reg = torch.einsum("nij,j,nkj->nik", V, values, V)
+    # geo weight: normalized smallest eigenvalue of the raw covariance
+    geo_w = torch.clamp(lam[:, 0], min=0.0) / torch.clamp(lam[:, 2], min=1e-30)
+    return reg, geo_w
+
+
+def apd_polar_cov(pts, dist_var, azimuth_var_deg, elevation_var_deg):
+    """Range-dependent polar measurement covariance (the "APD" in APDGICP),
+    `fast_apdgicp_impl.hpp:193-210`: scale s = (d*dist_var/400, d*sin(az),
+    d*sin(el)) rotated into the ray frame by R = Rz(azimuth) Ry(elevation).
+    pts (..., 3) -> (..., 3, 3)."""
+    d = torch.linalg.norm(pts, dim=-1)
+    s = torch.stack(
+        [
+            d * dist_var / 400.0,
+            d * math.sin(math.radians(azimuth_var_deg)),
+            d * math.sin(math.radians(elevation_var_deg)),
+        ],
+        dim=-1,
+    )
+    x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
+    elevation = torch.atan2(torch.sqrt(x * x + y * y), z)
+    azimuth = torch.atan2(y, x)
+    cy, sy = torch.cos(azimuth), torch.sin(azimuth)
+    cp, sp = torch.cos(elevation), torch.sin(elevation)
+    zero, one = torch.zeros_like(cy), torch.ones_like(cy)
+    Rz = torch.stack(
+        [torch.stack([cy, -sy, zero], -1), torch.stack([sy, cy, zero], -1),
+         torch.stack([zero, zero, one], -1)], -2,
+    )
+    Ry = torch.stack(
+        [torch.stack([cp, zero, sp], -1), torch.stack([zero, one, zero], -1),
+         torch.stack([-sp, zero, cp], -1)], -2,
+    )
+    A = (Rz @ Ry) * s[..., None, :]
+    return A @ A.transpose(-1, -2)
+
+
+class GICPProblem(NamedTuple):
+    """Precomputed per-pair state (covariances, weights, clusters)."""
+
+    src_xyz: torch.Tensor
+    src_mask: torch.Tensor
+    src_cov: torch.Tensor  # (N, 3, 3)
+    src_geo_w: torch.Tensor  # (N,)
+    src_cluster: torch.Tensor
+    tgt_xyz: torch.Tensor
+    tgt_mask: torch.Tensor
+    tgt_cov: torch.Tensor
+    tgt_cluster: torch.Tensor
+
+
+def _covariances(cloud: PointCloud, cfg: GICPConfig):
+    """Neighbourhood covariances per the config: identity for "icp"."""
+    n = cloud.xyz.shape[0]
+    if cfg.mode == "icp":
+        eye = torch.eye(3, dtype=cloud.xyz.dtype, device=cloud.xyz.device).expand(n, 3, 3)
+        return eye, torch.zeros((n,), dtype=cloud.xyz.dtype, device=cloud.xyz.device)
+    if cfg.covariance_method != "knn":
+        raise NotImplementedError(
+            f"covariance_method={cfg.covariance_method!r} is ported with VGICP (ROADMAP A12)"
+        )
+    return knn_covariances(cloud.xyz, cloud.mask, cfg.k_correspondences, cfg.plane_eps)
+
+
+def prepare_gicp(source: PointCloud, target: PointCloud, cfg: GICPConfig) -> GICPProblem:
+    src_cov, src_geo = _covariances(source, cfg)
+    tgt_cov, _ = _covariances(target, cfg)
+    return GICPProblem(
+        src_xyz=source.xyz, src_mask=source.mask, src_cov=src_cov, src_geo_w=src_geo,
+        src_cluster=source.cluster, tgt_xyz=target.xyz, tgt_mask=target.mask,
+        tgt_cov=tgt_cov, tgt_cluster=target.cluster,
+    )
+
+
+def _transform(xyz, T):
+    """Points under T, in the promoted dtype of the pose and the cloud.
+    Returns (moved, T in that dtype)."""
+    dtype = torch.promote_types(T.dtype, xyz.dtype)
+    T = T.to(dtype)
+    return xyz.to(dtype) @ T[:3, :3].T + T[:3, 3], T
+
+
+def _correspondences(prob: GICPProblem, T, cfg: GICPConfig):
+    """1-NN (`nn1_best`) + Mahalanobis; `update_correspondences`
+    (`fast_apdgicp_impl.hpp:160-220`)."""
+    moved, T = _transform(prob.src_xyz, T)
+    R = T[:3, :3]
+    idx, sqd = nn1_best(moved, prob.tgt_xyz, ref_mask=prob.tgt_mask)
+    idx = idx.long()
+    ok = prob.src_mask & (sqd < cfg.max_correspondence_distance ** 2) & prob.tgt_mask[idx]
+    cov_A = prob.src_cov.to(moved.dtype)
+    cov_B = prob.tgt_cov[idx].to(moved.dtype)
+    if cfg.mode == "apdgicp":
+        cov_d = apd_polar_cov(moved, cfg.dist_var, cfg.azimuth_var_deg, cfg.elevation_var_deg)
+        cov_A = cov_A + cov_d
+        cov_B = cov_B + cov_d
+    mah = inv3(cov_B + R @ cov_A @ R.T)
+    w = _weights(prob, cfg, prob.tgt_cluster[idx])
+    return idx, ok, mah, w, moved
+
+
+def _weights(prob: GICPProblem, cfg: GICPConfig, matched_cluster):
+    """Cost weights (`fast_apdgicp_impl.hpp:264-276`): 1 + geo + cluster
+    bonus for APDGICP; plain FastGICP/ICP cost is unweighted."""
+    if cfg.mode != "apdgicp":
+        return torch.ones_like(prob.src_geo_w)
+    same = (matched_cluster == prob.src_cluster) & (prob.src_cluster >= 0.0)
+    n = prob.src_xyz.shape[0]
+    cl_w = torch.where(same, 1.0 / n, 0.0).to(prob.src_geo_w.dtype)
+    return 1.0 + prob.src_geo_w + cl_w
+
+
+def _error_terms(prob: GICPProblem, T, idx, ok, mah, w):
+    moved, _ = _transform(prob.src_xyz, T)
+    err = prob.tgt_xyz[idx].to(moved.dtype) - moved  # (N, 3)
+    m_err = torch.einsum("nij,nj->ni", mah, err)
+    per_point = w * torch.einsum("ni,ni->n", err, m_err)
+    cost = torch.sum(torch.where(ok, per_point, torch.zeros_like(per_point)))
+    return moved, err, m_err, cost
+
+
+def _sym6(M):
+    """(..., 3, 3) symmetric matrix -> components (xx, yy, zz, xy, xz, yz)."""
+    return (M[..., 0, 0], M[..., 1, 1], M[..., 2, 2], M[..., 0, 1], M[..., 0, 2], M[..., 1, 2])
+
+
+def _apd_cov6(pts, dist_var, azimuth_var_deg, elevation_var_deg):
+    """`apd_polar_cov` in component form (xx, yy, zz, xy, xz, yz)."""
+    x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
+    d = torch.sqrt(x * x + y * y + z * z)
+    s1 = (d * dist_var / 400.0) ** 2
+    s2 = (d * math.sin(math.radians(azimuth_var_deg))) ** 2
+    s3 = (d * math.sin(math.radians(elevation_var_deg))) ** 2
+    elevation = torch.atan2(torch.sqrt(x * x + y * y), z)
+    azimuth = torch.atan2(y, x)
+    cy, sy = torch.cos(azimuth), torch.sin(azimuth)
+    cp, sp = torch.cos(elevation), torch.sin(elevation)
+    cy2, sy2, cp2, sp2 = cy * cy, sy * sy, cp * cp, sp * sp
+    xx = s1 * cy2 * cp2 + s2 * sy2 + s3 * cy2 * sp2
+    yy = s1 * sy2 * cp2 + s2 * cy2 + s3 * sy2 * sp2
+    zz = s1 * sp2 + s3 * cp2
+    xy = cy * sy * (s1 * cp2 + s3 * sp2 - s2)
+    xz = cy * cp * sp * (s3 - s1)
+    yz = sy * cp * sp * (s3 - s1)
+    return xx, yy, zz, xy, xz, yz
+
+
+def _sym_inv6(c):
+    """Closed-form inverse of a symmetric 3x3 given/returning 6 components."""
+    a, d, f, b, cc, e = c  # xx yy zz xy xz yz
+    A0 = d * f - e * e
+    A1 = cc * e - b * f
+    A2 = b * e - cc * d
+    det = a * A0 + b * A1 + cc * A2
+    inv_det = 1.0 / torch.where(torch.abs(det) > 1e-30, det, torch.full_like(det, 1e-30))
+    return (A0 * inv_det, (a * f - cc * cc) * inv_det, (a * d - b * b) * inv_det,
+            A1 * inv_det, A2 * inv_det, (b * cc - a * e) * inv_det)
+
+
+def _mah33(c):
+    """6 components -> (..., 3, 3) symmetric matrix."""
+    a, d, f, b, cc, e = c
+    return torch.stack(
+        [torch.stack([a, b, cc], -1), torch.stack([b, d, e], -1), torch.stack([cc, e, f], -1)],
+        -2,
+    )
+
+
+def make_gicp_callbacks(prob: GICPProblem, cfg: GICPConfig):
+    """Build (linearize, compute_error) for `lm_optimize`
+    (`FastAPDGICP::linearize` / `compute_error`, `fast_apdgicp_impl.hpp:224-346`;
+    the reference weights the cost with (1+geo+cl) but not H/b).
+
+    The linearize epilogue (APD covariance, (C_B + R C_A R^T)^-1, per-point
+    H/b) is written in closed component form on (N,) columns and reduced by
+    one (28, N) x (N,) product. The target's xyz, covariance, cluster and
+    mask ride in the 1-NN kernel's payload, so the kernel returns them for
+    the winning target point."""
+    tcov6 = _sym6(prob.tgt_cov)
+    scov6 = _sym6(prob.src_cov)
+    gate2 = cfg.max_correspondence_distance ** 2
+    dtype = prob.tgt_xyz.dtype
+    payload = torch.cat(
+        [prob.tgt_xyz] + [c[:, None].to(dtype) for c in tcov6]
+        + [prob.tgt_cluster.to(dtype)[:, None], prob.tgt_mask.to(dtype)[:, None]],
+        dim=1,
+    )
+
+    def linearize(T):
+        moved, T = _transform(prob.src_xyz, T)
+        R = T[:3, :3]
+        idx, sqd, sel = nn1_select(moved, prob.tgt_xyz, payload, ref_mask=prob.tgt_mask)
+        ok = prob.src_mask & (sqd < gate2) & (sel[:, 10] > 0.5)
+        okf = ok.to(moved.dtype)
+
+        A6 = list(scov6)
+        B6 = [sel[:, 3 + k] for k in range(6)]
+        if cfg.mode == "apdgicp":
+            cd = _apd_cov6(moved, cfg.dist_var, cfg.azimuth_var_deg, cfg.elevation_var_deg)
+            A6 = [A6[k] + cd[k] for k in range(6)]
+            B6 = [B6[k] + cd[k] for k in range(6)]
+        w = _weights(prob, cfg, sel[:, 9])
+
+        # RCR = B + R A R^T, unrolled over the symmetric components
+        Af = [[A6[0], A6[3], A6[4]], [A6[3], A6[1], A6[5]], [A6[4], A6[5], A6[2]]]
+        Bf = [[B6[0], B6[3], B6[4]], [B6[3], B6[1], B6[5]], [B6[4], B6[5], B6[2]]]
+        RA = [[sum(R[i, j] * Af[j][k] for j in range(3)) for k in range(3)] for i in range(3)]
+
+        def rcr(i, l):
+            return Bf[i][l] + sum(RA[i][k] * R[l, k] for k in range(3))
+
+        m = _sym_inv6((rcr(0, 0), rcr(1, 1), rcr(2, 2), rcr(0, 1), rcr(0, 2), rcr(1, 2)))
+        m_xx, m_yy, m_zz, m_xy, m_xz, m_yz = m
+        M0, M1, M2 = (m_xx, m_xy, m_xz), (m_xy, m_yy, m_yz), (m_xz, m_yz, m_zz)
+
+        ex = sel[:, 0] - moved[:, 0]
+        ey = sel[:, 1] - moved[:, 1]
+        ez = sel[:, 2] - moved[:, 2]
+        me = tuple(Mi[0] * ex + Mi[1] * ey + Mi[2] * ez for Mi in (M0, M1, M2))
+        cost_col = w * (ex * me[0] + ey * me[1] + ez * me[2])
+
+        px, py, pz = moved[:, 0], moved[:, 1], moved[:, 2]
+        # G[i] = column i of skew(p), dotted with M's columns (M symmetric)
+        G = [tuple(pz * M1[k] - py * M2[k] for k in range(3)),
+             tuple(px * M2[k] - pz * M0[k] for k in range(3)),
+             tuple(py * M0[k] - px * M1[k] for k in range(3))]
+
+        def skdot(i, v):
+            if i == 0:
+                return pz * v[1] - py * v[2]
+            if i == 1:
+                return px * v[2] - pz * v[0]
+            return py * v[0] - px * v[1]
+
+        Hrr = [[skdot(i, G[j]) for j in range(3)] for i in range(3)]
+        br = [skdot(i, me) for i in range(3)]
+        cols = torch.stack(
+            [Hrr[0][0], Hrr[1][1], Hrr[2][2], Hrr[0][1], Hrr[0][2], Hrr[1][2]]
+            + [G[i][k] for i in range(3) for k in range(3)]  # -H_rt
+            + [m_xx, m_yy, m_zz, m_xy, m_xz, m_yz]  # H_tt
+            + br + [me[0], me[1], me[2], cost_col],
+            dim=0,
+        ).to(moved.dtype)
+        s = cols @ okf  # every accumulator in one reduction
+        Hrr_m = torch.stack([torch.stack([s[0], s[3], s[4]]),
+                             torch.stack([s[3], s[1], s[5]]),
+                             torch.stack([s[4], s[5], s[2]])])
+        Hrt_m = -s[6:15].reshape(3, 3)
+        Htt_m = torch.stack([torch.stack([s[15], s[18], s[19]]),
+                             torch.stack([s[18], s[16], s[20]]),
+                             torch.stack([s[19], s[20], s[17]])])
+        H = torch.cat([torch.cat([Hrr_m, Hrt_m], 1), torch.cat([Hrt_m.T, Htt_m], 1)], 0)
+        b = torch.cat([s[21:24], -s[24:27]])
+        aux = (idx.long(), ok, _mah33(m), w)
+        return s[27], H, b, aux
+
+    def compute_error(T, aux):
+        idx, ok, mah, w = aux
+        return _error_terms(prob, T, idx, ok, mah, w)[3]
+
+    return linearize, compute_error
+
+
+def make_gicp_callbacks_reference(prob: GICPProblem, cfg: GICPConfig):
+    """The straightforward (N, 3, 3) einsum formulation over `nn1_best`
+    correspondences: the equality reference for the component form."""
+
+    def linearize(T):
+        idx, ok, mah, w, _ = _correspondences(prob, T, cfg)
+        moved, err, m_err, cost = _error_terms(prob, T, idx, ok, mah, w)
+        # J (3x6) rows: d(err)/d[d_rot, d_trans] = [skew(moved), -I]
+        sk = lie.hat(moved)
+        okf = ok.to(moved.dtype)
+        H_rr = torch.einsum("nji,njk,n->ik", sk, mah @ sk, okf)
+        H_rt = -torch.einsum("nji,njk,n->ik", sk, mah, okf)
+        H_tt = torch.einsum("nij,n->ij", mah, okf)
+        H = torch.cat([torch.cat([H_rr, H_rt], 1), torch.cat([H_rt.T, H_tt], 1)], 0)
+        b = torch.cat([torch.einsum("nji,nj,n->i", sk, m_err, okf),
+                       -torch.einsum("ni,n->i", m_err, okf)])
+        return cost, H, b, (idx, ok, mah, w)
+
+    def compute_error(T, aux):
+        idx, ok, mah, w = aux
+        return _error_terms(prob, T, idx, ok, mah, w)[3]
+
+    return linearize, compute_error
+
+
+def gicp_align(
+    source: PointCloud,
+    target: PointCloud,
+    init_T=None,
+    cfg: GICPConfig = GICPConfig(),
+) -> LMResult:
+    """Full APDGICP/GICP/ICP alignment source -> target. Returns T mapping
+    source points into the target frame."""
+    if cfg.mode not in ("apdgicp", "gicp", "icp"):
+        raise ValueError(f"unknown GICP mode {cfg.mode!r}")
+    if init_T is None:
+        init_T = torch.eye(4, dtype=source.xyz.dtype, device=source.xyz.device)
+    prob = prepare_gicp(source, target, cfg)
+    linearize, compute_error = make_gicp_callbacks(prob, cfg)
+    return lm_optimize(linearize, compute_error, init_T, cfg.lm)
+
+
+def fitness_score(source: PointCloud, target: PointCloud, T, max_range: float = 1.0):
+    """Mean squared NN distance of inliers (`pcl::Registration::
+    getFitnessScore`, `information_matrix_calculator.cpp:55-86`), over the
+    `nn1_best` kernel. Returns (fitness, inlier count)."""
+    moved, _ = _transform(source.xyz, T)
+    _, sqd = nn1_best(moved, target.xyz, ref_mask=target.mask)
+    ok = source.mask & (sqd < max_range * max_range)
+    n = torch.clamp(torch.sum(ok), min=1)
+    return torch.sum(torch.where(ok, sqd, torch.zeros_like(sqd))) / n, n

@@ -1,0 +1,148 @@
+"""The slice as a whole: `python -m gorio_tpu_torch.cli simulate / slam
+--no-loops / evaluate` against `python -m gorio_tpu.cli` on one small
+sequence (4 s at 4 Hz, capacity 512, 3000 landmarks), on the CPU.
+
+End-to-end tolerance: the port draws its RANSAC hypotheses from a torch
+generator, not `jax.random`, so the ego-velocity motion guesses differ by
+the RANSAC noise; the LM then stops anywhere inside its 5e-4 m / 2e-3 rad
+convergence box (`lsq.py` epsilons). Keyframe poses must agree within
+5 mm / 5 mrad, and the ATEs within 20% + 1 mm."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from gorio_tpu.cli import main as jax_cli
+from gorio_tpu.io.tum import load_tum
+from gorio_tpu_torch.cli import main as torch_cli
+
+ROOT = Path(__file__).resolve().parents[1]
+SIM = ["--duration", "4", "--rate", "4", "--capacity", "512", "--landmarks", "3000"]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("slice")
+    torch_cli(["simulate", "--output", str(d / "seq"), *SIM])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("GORIO_NO_COMPILE_CACHE", "1")  # keep the JAX CLI's cache out of HOME
+        jax_cli(["simulate", "--output", str(d / "seq_jax"), *SIM])
+        jax_cli(["slam", "--dataset", str(d / "seq"), "--output", str(d / "jax.tum"),
+                 "--no-loops", "--capacity", "512"])
+    slam, odo, _ = torch_cli(["slam", "--dataset", str(d / "seq"), "--output",
+                              str(d / "torch.tum"), "--no-loops", "--capacity", "512",
+                              "--device", "cpu", "--timing-out", str(d / "timing.json")])
+    return d, slam, odo
+
+
+def test_simulate_writes_the_same_sequence(runs):
+    d = runs[0]
+    names = sorted(p.name for p in (d / "seq").iterdir())
+    assert names == sorted(p.name for p in (d / "seq_jax").iterdir())
+    for name in names:
+        if name.endswith(".npz"):
+            a, b = np.load(d / "seq" / name), np.load(d / "seq_jax" / name)
+            for k in a.files:
+                np.testing.assert_array_equal(a[k], b[k])
+        else:
+            assert (d / "seq" / name).read_bytes() == (d / "seq_jax" / name).read_bytes(), name
+
+
+def test_slam_matches_jax(runs):
+    d, slam, odo = runs
+    js, jp = load_tum(d / "jax.tum")
+    ts, tp = load_tum(d / "torch.tum")
+    assert len(ts) == len(js) == len(slam.keyframes)
+    np.testing.assert_array_equal(ts, js)
+    dpos = np.linalg.norm(tp[:, :3, 3] - jp[:, :3, 3], axis=1)
+    dR = np.einsum("nji,njk->nik", jp[:, :3, :3], tp[:, :3, :3])
+    dang = np.arccos(np.clip((np.trace(dR, axis1=1, axis2=2) - 1) / 2, -1, 1))
+    assert dpos.max() < 5e-3 and dang.max() < 5e-3, (dpos.max(), dang.max())
+
+    gt = str(d / "seq" / "groundtruth.tum")
+    ej = torch_cli(["evaluate", str(d / "jax.tum"), gt])["ate_rmse_m"]
+    et = torch_cli(["evaluate", str(d / "torch.tum"), gt])["ate_rmse_m"]
+    assert abs(et - ej) <= 0.2 * ej + 1e-3, (et, ej)
+    assert et < 0.05
+
+    timing = json.loads((d / "timing.json").read_text())
+    assert timing["n_keyframes"] == len(ts) and timing["device"] == "cpu"
+    assert timing["lm_iterations"] == sum(st.iterations for st in odo.statuses) > 0
+
+
+@pytest.mark.parametrize("flags,item", [
+    ([], "A8"),
+    (["--no-loops", "--fused"], "A10"),
+    (["--no-loops", "--floor"], "A10"),
+    (["--no-loops", "--preint", "ugpm"], "A11"),
+    (["--no-loops", "--registration", "ndt"], "A12"),
+    (["--no-loops", "--optimize-window", "5"], "A7-sparse"),
+    (["--no-loops", "--map", "m.npz"], "A13"),
+])
+def test_unported_flags_raise(runs, flags, item):
+    with pytest.raises(NotImplementedError, match=item):
+        torch_cli(["slam", "--dataset", str(runs[0] / "seq"), "--device", "cpu", *flags])
+
+
+def test_cuda_device_without_a_card_raises(runs):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch_cli(["slam", "--dataset", str(runs[0] / "seq"), "--no-loops"])
+
+
+def test_port_runs_without_jax(runs, tmp_path):
+    """A process in which `import jax` fails runs the port's whole slice:
+    simulate, slam, evaluate — with the same result as in this process.
+    (An import hook blocks jax: a `sys.modules['jax'] = None` entry trips
+    scipy's array-API helper, which looks the module up by name.)"""
+    d = runs[0]
+    code = (
+        "import sys\n"
+        "class NoJax:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib'):\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "sys.meta_path.insert(0, NoJax())\n"
+        "from gorio_tpu_torch.cli import main\n"
+        f"main(['simulate', '--output', 'seq', *{SIM!r}])\n"
+        f"main(['slam', '--dataset', 'seq', '--output', {str(tmp_path / 'e.tum')!r},"
+        " '--no-loops', '--capacity', '512', '--device', 'cpu'])\n"
+        f"r = main(['evaluate', {str(tmp_path / 'e.tum')!r}, 'seq/groundtruth.tum'])\n"
+        "assert r['ate_rmse_m'] < 0.05\n"
+        "assert not [m for m, v in sys.modules.items() if m.startswith('jax') and v is not None]\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    np.testing.assert_allclose(load_tum(tmp_path / "e.tum")[1], load_tum(d / "torch.tum")[1],
+                               atol=1e-7)
+
+
+def test_configs_carry_over_from_jax():
+    """`convert.config_from_dict` maps the JAX CLI's configs (nested ones
+    included) onto the port's; configs of unported modules stay dicts."""
+    from gorio_tpu.pipeline.odometry import OdometryConfig as JOdo
+    from gorio_tpu.pipeline.slam import SLAMConfig as JSlam
+    from gorio_tpu_torch.convert import config_from_dict
+    from gorio_tpu_torch.pipeline.odometry import OdometryConfig
+    from gorio_tpu_torch.pipeline.slam import SLAMConfig
+
+    jslam = JSlam(enable_loop_closure=False, gyr_var=2e-5)
+    slam_cfg = config_from_dict(SLAMConfig, jslam._asdict())
+    assert slam_cfg.gyr_var == 2e-5 and slam_cfg.solve.max_iterations == 30
+    assert slam_cfg.info == config_from_dict(type(slam_cfg.info), jslam.info._asdict())
+    assert isinstance(slam_cfg.loop, dict) and isinstance(slam_cfg.ugpm, dict)
+    odo = config_from_dict(OdometryConfig, JOdo(registration="gicp")._asdict())
+    assert odo.registration == "gicp" and odo.gicp.lm.max_iterations == 64
+    assert odo == OdometryConfig(registration="gicp", ndt=odo.ndt, groundseg=odo.groundseg)
+    with pytest.raises(ValueError, match="no fields"):
+        config_from_dict(SLAMConfig, {"not_a_field": 1})
