@@ -7,16 +7,26 @@ Phases, one line each (more for the tables):
   1. device  — the card (`nvidia-smi` name and power limit, torch's name);
                fails without CUDA.
   2. build   — builds the 1-NN kernels from `gorio_tpu_torch/ops/csrc/` with
-               nvcc and prints the build seconds and ptxas' report.
+               nvcc and the native `.grf` runtime with g++, side by side, and
+               prints the build seconds and ptxas' report.
   3. kernels — holds both kernels (`nn1_best` <- `gorio_nn1`, `nn1_select` <-
-               `gorio_nn1_select`) against their plain PyTorch versions on the
-               same CUDA inputs: the main path's shape (N = M = 2048, an
-               11-column payload padded to 16), a ragged batch (B = 3,
-               N = 1537, M = 1999, 30% of refs masked) and a batch whose refs
-               are all masked. Indices must agree except at near-ties (the two
+               `gorio_nn1_select`) against their plain PyTorch versions, run
+               at the kernel's float32 arithmetic, on the same CUDA inputs:
+               the main path's call (N = M = 2048, f64 query, f32 ref, bool
+               mask, f32 11-column payload), the same all-f32 and all-f64,
+               refs that repeat every M / S so that each minimum ties across
+               the cluster's CTAs (the lowest copy must win), M = 5 < S,
+               N = 1, a ragged batch (B = 3, N = 1537, M = 1999, 30% masked,
+               the payload a strided view) and a batch whose refs are all
+               masked. Indices must agree except at near-ties (the two
                candidates' d2 within 1e-5 * max(1, d2)); d2 and the payload
                must be allclose (rtol 1e-5, atol 1e-6; the payload on rows
-               whose indices agree). Times both (CUDA events, median of 50).
+               whose indices agree). Then, at the main path's call: one call
+               must put exactly one kernel on the card (torch.profiler);
+               each kernel's time per launch (CUDA events around 100
+               launches), alone (profiler) and per single call, the plain
+               version's, the library's (`torch.cdist`, masked `min`, and a
+               gather for `nn1_select`) and the bound.
   4. slice   — the port's CLI: `simulate` (seed 0, 20 s at 5 Hz, capacity
                2048, 9000 landmarks: 98 frames), `slam --no-loops --device
                cuda`, `evaluate`. Fails unless the `nn1_select` launches equal
@@ -35,10 +45,15 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 RTOL, ATOL, TIE = 1e-5, 1e-6, 1e-5
+MAIN_N = 2048  # points per scan at the default capacity: N = M on the main path
+MAIN = "main path: (2048, 3) f64 query, f32 ref, bool mask, f32 P=11 payload"
+CALLS = 10  # calls profiled to show that one call is one kernel
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: FP32 FLOP/s off the tensor cores, HBM B/s
 KEYFRAMES, KEYFRAME_TOL, ATE_MAX = 80, 4, 0.05
 
 
@@ -57,17 +72,31 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def check_pair(name, q, r, mask, got, want):
-    """Hold a kernel's (idx, d2[, sel]) against the plain version's."""
+def check_pair(name, q, r, mask, got, want, split=None):
+    """Hold a kernel's (idx, d2[, sel]) against the plain version's. With
+    `split`, every ref block of that size repeats the first one, so each
+    query's minimum is tied across the cluster's CTAs and the lowest copy,
+    in the first block, must win."""
     import torch
 
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            fail(f"{name}: kernel gives {g.dtype} {tuple(g.shape)}, "
+                 f"plain {w.dtype} {tuple(w.shape)}")
     idx_k, d2_k = got[0].long(), got[1]
     idx_p, d2_p = want[0].long(), want[1]
+    if split is not None and int(idx_k.max()) >= split:
+        fail(f"{name}: a tie across the cluster split went to index {int(idx_k.max())} "
+             f">= {split}, not to the lowest copy")
     agree = idx_k == idx_p
     if not bool(agree.all()):
         # a disagreement is allowed only at a near-tie: both candidates'
-        # exact (float64) distances within TIE * max(1, d2)
-        q64, r64 = q.double(), r.double()
+        # exact (float64) distances, on the float32 values the kernel
+        # reads, within TIE * max(1, d2)
+        q64, r64 = q.float().double(), r.float().double()
+        if q64.dim() == 2:
+            q64, r64, idx_k, idx_p = q64[None], r64[None], idx_k[None], idx_p[None]
+            mask = None if mask is None else mask[None]
         bias = torch.zeros_like(r64[..., 0])
         if mask is not None:
             bias = torch.where(mask, 0.0, 1e12).double()
@@ -78,7 +107,7 @@ def check_pair(name, q, r, mask, got, want):
 
         dk, dp = exact(idx_k), exact(idx_p)
         tie_ok = (dk - dp).abs() <= TIE * torch.clamp(dp.abs(), min=1.0)
-        bad = int((~agree & ~tie_ok).sum())
+        bad = int((~agree.reshape(tie_ok.shape) & ~tie_ok).sum())
         if bad:
             fail(f"{name}: {bad} indices disagree beyond a near-tie")
     if not torch.allclose(d2_k, d2_p, rtol=RTOL, atol=ATOL):
@@ -92,7 +121,9 @@ def check_pair(name, q, r, mask, got, want):
     return int((~agree).sum()), err
 
 
-def median_ms(fn, repeats=50, warmup=5):
+def call_ms(fn, repeats=50, warmup=5):
+    """Median time of one call, CUDA events around each: the wrapper's host
+    work between the events counts."""
     import torch
 
     for _ in range(warmup):
@@ -108,51 +139,163 @@ def median_ms(fn, repeats=50, warmup=5):
     return statistics.median(times)
 
 
+def per_launch_ms(fn, launches=100, warmup=10):
+    """One pair of CUDA events around `launches` back-to-back calls, after a
+    warm-up; the time per call."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def device_kernels(fn, calls):
+    """(name, device us) of every device activity (kernel, copy, memset)
+    that `calls` calls of `fn` put on the card, under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.device_time_total) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def bound(q, r, mask, payload, sel):
+    """The least time the card could take for one call (ms) and what sets
+    it: ~9 FP32 operations per (query, ref) pair at 67 TFLOP/s, against each
+    input read once and each output written once at 3.35 TB/s."""
+    B = q.shape[0] if q.dim() == 3 else 1
+    N, M = q.shape[-2], r.shape[-2]
+    ops = 9.0 * B * N * M
+    nbytes = q.numel() * q.element_size() + r.numel() * r.element_size()
+    nbytes += 0 if mask is None else mask.numel() * mask.element_size()
+    nbytes += B * N * (4 + q.element_size())  # idx, d2
+    if payload is not None:
+        nbytes += B * M * payload.shape[-1] * payload.element_size()
+        nbytes += sel.numel() * sel.element_size()
+    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def kernel_phase(K):
     import torch
 
+    f32, f64 = torch.float32, torch.float64
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(0)
 
-    def inputs(B, N, M, masked_frac):
-        ref = torch.rand(B, M, 3, generator=g, device=dev) * 80.0 - 40.0
+    def inputs(B, N, M, masked_frac, qdt=f64, rdt=f32, pdt=f32, P=11, split=None):
+        ref = torch.rand(B, M, 3, generator=g, device=dev, dtype=f64) * 80.0 - 40.0
+        if split is not None:  # every block of `split` refs repeats the first
+            ref = ref[:, :split].repeat(1, M // split, 1)
         query = ref[:, torch.randint(0, M, (N,), generator=g, device=dev)]
-        query = query + 0.3 * torch.randn(B, N, 3, generator=g, device=dev)
+        query = query + 0.3 * torch.randn(B, N, 3, generator=g, device=dev, dtype=f64)
         mask = torch.rand(B, M, generator=g, device=dev) >= masked_frac
-        payload = torch.randn(B, M, 11, generator=g, device=dev)
-        return query, ref, mask, payload
+        payload = torch.randn(B, M, P, generator=g, device=dev, dtype=f64)
+        return query.to(qdt), ref.to(rdt), mask, payload.to(pdt)
 
+    S_main = K.cluster_size(1, MAIN_N)
+    split = MAIN_N // S_main
     cases = {
-        "main N=M=2048": inputs(1, 2048, 2048, 0.0),
-        "ragged B=3 N=1537 M=1999 30% masked": inputs(3, 1537, 1999, 0.3),
+        # the main path's call: (N, 3) f64 moved source, f32 target, bool
+        # mask, f32 11-column payload
+        MAIN: tuple(t[0] for t in inputs(1, MAIN_N, MAIN_N, 0.1)),
+        "all f32, N=M=2048": inputs(1, MAIN_N, MAIN_N, 0.1, f32, f32, f32),
+        "all f64, N=M=2048": inputs(1, MAIN_N, MAIN_N, 0.1, f64, f64, f64),
+        f"ties across the split: refs repeat every {split}, N=M=2048":
+            inputs(1, MAIN_N, MAIN_N, 0.0, split=split),
+        f"M=5 < S={S_main}, N=2048": inputs(1, MAIN_N, 5, 0.0),
+        "N=1, M=2048": inputs(1, 1, MAIN_N, 0.1),
     }
+    q, r, m, p = inputs(3, 1537, 1999, 0.3, f32, f32, f32, P=16)
+    cases["ragged B=3 N=1537 M=1999 30% masked, payload the first 11 of 16 columns"] = (
+        q, r, m, p[..., :11])
     q, r, m, p = inputs(2, 1024, 1500, 0.0)
     m[1] = False  # every ref of the second batch masked
     cases["all refs masked in one batch"] = (q, r, m, p)
 
-    errs = {"nn1": 0.0, "nn1_select": 0.0}
+    errs = {}
     for label, (q, r, m, p) in cases.items():
-        ties1, e1 = check_pair(f"nn1 [{label}]", q, r, m,
-                               K.nn1_best(q, r, m), K.nn1_plain(q, r, m))
-        ties2, e2 = check_pair(f"nn1_select [{label}]", q, r, m,
-                               K.nn1_select(q, r, p, m), K.nn1_select_plain(q, r, p, m))
+        tie_split = split if label.startswith("ties") else None
+        ties1, e1 = check_pair(f"nn1 [{label}]", q, r, m, K.nn1_best(q, r, m),
+                               K.nn1_plain(q, r, m, compute_dtype=f32), tie_split)
+        ties2, e2 = check_pair(f"nn1_select [{label}]", q, r, m, K.nn1_select(q, r, p, m),
+                               K.nn1_select_plain(q, r, p, m, compute_dtype=f32), tie_split)
         torch.cuda.synchronize()
-        if label.startswith("main"):
-            errs = {"nn1": e1, "nn1_select": e2}
-        print(f"[kernels] {label}: nn1 ok (near-ties {ties1}, max abs err {e1:.3g}), "
-              f"nn1_select ok (near-ties {ties2}, max abs err {e2:.3g})", flush=True)
+        for name, e in (("nn1", e1), ("nn1_select", e2)):
+            errs[name] = max(errs.get(name, 0.0), e)
+        B = q.shape[0] if q.dim() == 3 else 1
+        print(f"[kernels] {label} (S={K.cluster_size(B, q.shape[-2])}): nn1 ok (near-ties "
+              f"{ties1}, max abs err {e1:.3g}), nn1_select ok (near-ties {ties2}, "
+              f"max abs err {e2:.3g})", flush=True)
 
-    q, r, m, p = (t[0] for t in cases["main N=M=2048"])
-    times = {
-        "nn1": (median_ms(lambda: K.nn1_best(q, r, m)), median_ms(lambda: K.nn1_plain(q, r, m))),
-        "nn1_select": (median_ms(lambda: K.nn1_select(q, r, p, m)),
-                       median_ms(lambda: K.nn1_select_plain(q, r, p, m))),
+    q, r, m, p = cases[MAIN]
+    qf, rf = q.float(), r.float()
+    bias = torch.where(m, 0.0, 1e12).to(f32)
+
+    def library_nn1():
+        d2, idx = (torch.cdist(qf, rf).square_() + bias).min(dim=-1)
+        return idx, d2
+
+    def library_select():
+        idx, d2 = library_nn1()
+        return idx, d2, p[idx]
+
+    fns = {
+        "nn1": (lambda: K.nn1_best(q, r, m), lambda: K.nn1_plain(q, r, m, compute_dtype=f32),
+                library_nn1),
+        "nn1_select": (lambda: K.nn1_select(q, r, p, m),
+                       lambda: K.nn1_select_plain(q, r, p, m, compute_dtype=f32),
+                       library_select),
     }
-    for name, (tk, tp) in times.items():
-        print(f"[kernels] {name} at N=M=2048: kernel {tk:.4f} ms, plain {tp:.4f} ms "
-              f"(median of 50, CUDA events)", flush=True)
-    return errs, times
+
+    # one call at the main path's types is one launch: no cast, pad or copy.
+    # The profiler can drop an activity but never adds one, so over CALLS
+    # calls it must see nothing but the kernel, and at most CALLS of it.
+    for name, (kernel, _, _) in fns.items():
+        acts = device_kernels(kernel, CALLS)
+        names = sorted({n for n, _ in acts})
+        if not acts or len(acts) > CALLS or any("nn1_kernel" not in n for n in names):
+            fail(f"{CALLS} {name} calls put {len(acts)} activities on the card: {names}")
+        print(f"[kernels] {CALLS} {name} calls at the main path's types put {len(acts)} "
+              f"activities on the card, all one kernel: {names[0]}", flush=True)
+
+    stats = {}
+    for name, (kernel, plain, library) in fns.items():
+        acts = device_kernels(kernel, 20)
+        kernel_us = statistics.mean(t for n, t in acts if "nn1_kernel" in n)  # kernel alone
+        want = plain()
+        stats[name] = {
+            "ms": per_launch_ms(kernel), "plain_ms": per_launch_ms(plain),
+            "library_ms": per_launch_ms(library), "kernel_ms": kernel_us / 1e3,
+            "call_ms": call_ms(kernel),
+        }
+        stats[name]["bound_ms"], stats[name]["bound_by"] = bound(
+            q, r, m, p if name == "nn1_select" else None,
+            want[2] if name == "nn1_select" else None)
+        st = stats[name]
+        print(f"[kernels] {name} at {MAIN}: {st['ms']:.5f} ms per launch (events around 100), "
+              f"kernel alone {st['kernel_ms']:.5f} ms (profiler, mean of 20), one call "
+              f"{st['call_ms']:.5f} ms (median of 50); plain {st['plain_ms']:.5f} ms, library "
+              f"(cdist + min{' + gather' if name == 'nn1_select' else ''}) "
+              f"{st['library_ms']:.5f} ms; bound {st['bound_ms']:.6f} ms ({st['bound_by']}), "
+              f"kernel alone at {100 * st['bound_ms'] / st['kernel_ms']:.1f}% of it",
+              flush=True)
+    return errs, stats, S_main
 
 
 def slice_phase(K):
@@ -219,18 +362,23 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from gorio_tpu_torch.io import native
     from gorio_tpu_torch.ops import nn as K
 
     t0 = time.perf_counter()
-    lib = K.build_library()
+    with ThreadPoolExecutor(2) as pool:  # nvcc and g++ side by side
+        kernels_lib, native_lib = pool.submit(K.build_library), pool.submit(native.build_native)
+        lib = kernels_lib.result()
+        print(f"[build] {native_lib.result().name} (g++)", flush=True)
     K.load_library()
-    print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[build] {lib.name} (nvcc) and the native runtime in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     log = K.BUILD_DIR / f"{lib.name}.log"
     for line in (log.read_text().splitlines() if log.exists() else []):
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"[build] {line.strip()}", flush=True)
 
-    errs, times = kernel_phase(K)
+    errs, stats, S_main = kernel_phase(K)
     launches = slice_phase(K)
 
     replaces = {"nn1": "gorio_tpu/ops/nn_pallas.py:34",
@@ -238,7 +386,7 @@ def main():
     kernels = [
         {"name": name, "route": "cuda", "source": "gorio_tpu_torch/ops/csrc/nn1.cu",
          "replaces": replaces[name], "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         **stats[name], "cluster": S_main, "shape": MAIN}
         for name in ("nn1", "nn1_select")
     ]
     print(json.dumps({"kernels": kernels}))

@@ -24,6 +24,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .io.tum import ate_rmse, load_tum, rte, save_tum
+from .utils.profiling import StageTimer
+
 
 def _device(name: str) -> torch.device:
     device = torch.device(name)
@@ -33,15 +36,12 @@ def _device(name: str) -> torch.device:
 
 
 def cmd_simulate(args):
-    from gorio_tpu.io.tum import save_tum
-
-    from .io.native import native
+    from .io.native import write_frame
     from .io.synthetic import (
         make_dynamic_objects, make_world, render_radar_scan, sample_gps, sample_imu,
         simulate_trajectory,
     )
 
-    gn = native()
     out = Path(args.output)
     out.mkdir(parents=True, exist_ok=True)
     traj = simulate_trajectory(
@@ -67,7 +67,7 @@ def cmd_simulate(args):
             elevation_fov_deg=None if args.omni else args.fov_elevation,
         )
         m = cloud.mask.numpy()
-        gn.write_frame(
+        write_frame(
             out / f"{i:06d}.grf", float(t), cloud.xyz.numpy()[m],
             cloud.intensity.numpy()[m], cloud.doppler.numpy()[m],
         )
@@ -110,12 +110,9 @@ def _check_slam_flags(args):
 def cmd_slam(args):
     """Run the slice; returns (slam, odometry, timer) for callers that drive
     it in-process."""
-    from gorio_tpu.io.tum import save_tum
-    from gorio_tpu.utils.profiling import StageTimer
-
     from .core.pointcloud import make_cloud
     from .estimators.egovel import EgoVelConfig, estimate_ego_velocity
-    from .io.native import native
+    from .io.native import NativePipelineDataset
     from .pipeline.odometry import OdometryConfig, ScanMatchingOdometry
     from .pipeline.slam import RadarGraphSLAM, SLAMConfig
 
@@ -155,10 +152,10 @@ def cmd_slam(args):
         print(f"pushed {len(gps_npz['t'])} GPS fixes")
 
     odo = ScanMatchingOdometry(OdometryConfig(registration=args.registration))
-    timer = StageTimer()
+    timer = StageTimer(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    ds = native().NativePipelineDataset(frames, capacity=args.capacity)
+    ds = NativePipelineDataset(frames, capacity=args.capacity)
     n = 0
     point_dist = np.zeros(100, np.int64)
     for stamp, n_pts, packed in ds:
@@ -232,8 +229,6 @@ def cmd_slam(args):
 
 
 def cmd_evaluate(args):
-    from gorio_tpu.io.tum import ate_rmse, load_tum, rte
-
     es, ep = load_tum(args.estimate)
     gs, gp = load_tum(args.groundtruth)
     result = {"ate_rmse_m": ate_rmse(es, ep, gs, gp), "rte_m": rte(es, ep, gs, gp),

@@ -1,39 +1,135 @@
-"""Access to the shared native `.grf` runtime (`gorio_tpu.io.native`).
+"""ctypes binding of the native `.grf` runtime (`native/src/*.cc`).
 
-The port reads and writes sequences through the JAX package's numpy-only
-`gorio_tpu.io.native` and its C++ library (`native/`), without copying
-them. That module builds the library with CMake on first use; on a machine
-without CMake, `native()` compiles the same sources with g++ into the same
-path first.
+The port's own copy of the parts of `gorio_tpu/io/native.py` that its CLI
+calls: `write_frame` (one `.grf` radar frame) and `NativePipelineDataset`
+(the two-thread decode -> pack reader). The C++ sources stay where they are;
+`load()` compiles them with g++ at first use into `gorio_tpu_torch/_build/`
+(gitignored, file name tagged by the sources' content) and binds them.
 """
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
+from pathlib import Path
 
-from gorio_tpu.io import native as _native
+import numpy as np
+
+_SRC = Path(__file__).resolve().parents[2] / "native" / "src"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+FIELDS = 5  # x y z intensity doppler
+_LIB = None
 
 
-def native():
-    """The `gorio_tpu.io.native` module, with its library present or
-    buildable."""
-    lib = _native._BUILD / "libgorio_native.so"
-    if lib.exists() or shutil.which("cmake") is not None:
-        return _native
-    cxx = shutil.which("g++")
+def build_native() -> Path:
+    """Compile `native/src/*.cc` into `_build/` (once per source content)
+    and return the shared library's path."""
+    srcs = sorted(_SRC.glob("*.cc"))
+    if not srcs:
+        raise RuntimeError(f"no native sources under {_SRC}")
+    digest = hashlib.sha1()
+    for p in sorted(_SRC.iterdir()):
+        digest.update(p.name.encode() + p.read_bytes())
+    lib = BUILD_DIR / f"libgorio_native_{digest.hexdigest()[:12]}.so"
+    if lib.exists():
+        return lib
+    cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
-        raise RuntimeError("building the native .grf runtime needs cmake or g++")
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
-    srcs = sorted(str(p) for p in (_native._NATIVE / "src").glob("*.cc"))
+        raise RuntimeError("building the native .grf runtime needs g++")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
     proc = subprocess.run(
         [cxx, "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread", "-fopenmp",
-         "-o", str(tmp), *srcs],
+         "-o", str(tmp), *map(str, srcs)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:
         raise RuntimeError(f"g++ build of the native runtime failed:\n{proc.stderr}")
     os.replace(tmp, lib)
-    return _native
+    return lib
+
+
+def load():
+    """Build (if needed) and bind the runtime; cached per process."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build_native()))
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.gorio_write_frame.restype = I
+        lib.gorio_write_frame.argtypes = [
+            ctypes.c_char_p, ctypes.c_double, ctypes.POINTER(ctypes.c_float),
+            ctypes.c_uint32, ctypes.c_uint32,
+        ]
+        lib.gorio_pipeline_dataset_open.restype = P
+        lib.gorio_pipeline_dataset_open.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), I, I, I, I,
+        ]
+        lib.gorio_pipeline_dataset_next.restype = I
+        lib.gorio_pipeline_dataset_next.argtypes = [
+            P, ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_double),
+        ]
+        lib.gorio_pipeline_dataset_close.argtypes = [P]
+        _LIB = lib
+    return _LIB
+
+
+def write_frame(path, stamp: float, xyz, intensity=None, doppler=None):
+    """Write one .grf radar frame."""
+    lib = load()
+    xyz = np.asarray(xyz, np.float32)
+    n = xyz.shape[0]
+    cols = [xyz]
+    for extra in (intensity, doppler):
+        cols.append(np.asarray(extra if extra is not None else np.zeros(n), np.float32)[:, None])
+    data = np.ascontiguousarray(np.concatenate(cols, axis=1), np.float32)
+    rc = lib.gorio_write_frame(
+        str(path).encode(), float(stamp), data.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        n, FIELDS,
+    )
+    if rc != 0:
+        raise IOError(f"failed to write {path}")
+
+
+class NativePipelineDataset:
+    """Two-stage native reader (decode thread -> pack thread) yielding
+    (stamp, n_valid, padded), where `padded` is a reused zero-padded
+    (capacity, FIELDS) float32 array: copy it if you keep it."""
+
+    def __init__(self, paths, capacity: int = 4096, queue_depth: int = 4):
+        lib = load()
+        self._lib = lib
+        self.capacity = capacity
+        enc = [str(p).encode() for p in paths]
+        arr = (ctypes.c_char_p * len(enc))(*enc)
+        self._handle = lib.gorio_pipeline_dataset_open(arr, len(enc), queue_depth, capacity,
+                                                       FIELDS)
+        self._buf = np.empty((capacity, FIELDS), np.float32)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        stamp = ctypes.c_double()
+        while True:
+            n = self._lib.gorio_pipeline_dataset_next(
+                self._handle, self._buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                ctypes.byref(stamp),
+            )
+            if n == 0:
+                raise StopIteration
+            if n == -2:  # valid frame, zero returns (sensor dropout) — skip
+                continue
+            if n < 0:
+                raise IOError("corrupt frame")
+            return stamp.value, n, self._buf
+
+    def close(self):
+        if getattr(self, "_handle", None):
+            self._lib.gorio_pipeline_dataset_close(self._handle)
+            self._handle = None
+
+    def __del__(self):
+        self.close()

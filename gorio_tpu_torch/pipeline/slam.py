@@ -5,7 +5,7 @@ Port of `RadarGraphSLAM` from `gorio_tpu/pipeline/slam.py`
 between keyframes, the pose graph (odometry between-factors with
 fitness-based information, preintegration between-factors, GPS priors),
 and its dense LM solve. The graph is built on the host and solved on
-`device`.
+`device`, the card unless the caller asks for the CPU.
 
 Not ported yet, and refused with NotImplementedError rather than ignored:
 loop closure (ROADMAP A8), UGPM preintegration (A11), the floor constraint
@@ -91,7 +91,7 @@ class GPSMeasurement(NamedTuple):
 @dataclass
 class RadarGraphSLAM:
     cfg: SLAMConfig = SLAMConfig(enable_loop_closure=False)
-    device: torch.device = torch.device("cpu")
+    device: torch.device = torch.device("cuda")
     keyframes: list = field(default_factory=list)
     updater: KeyframeUpdater = None
     gyr_t: list = field(default_factory=list)
@@ -105,6 +105,9 @@ class RadarGraphSLAM:
     def __post_init__(self):
         check_supported(self.cfg)
         self.device = torch.device(self.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"RadarGraphSLAM(device={self.device}): no CUDA device is "
+                               "available (pass device='cpu' to run on the CPU)")
         if self.updater is None:
             self.updater = KeyframeUpdater(
                 delta_trans=self.cfg.keyframe_delta_trans,

@@ -1,0 +1,57 @@
+"""Per-stage timing statistics.
+
+The port's own copy of `StageTimer` from `gorio_tpu/utils/profiling.py`:
+wall times per named stage and a median/mean/max report, the counterpart of
+the reference's `/command "time"` dump. On a CUDA device the timer
+synchronises the device before it reads the clock at a stage's start and
+end, so a stage's time is the device work it enqueued and not only the
+enqueue, and excludes work enqueued before it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import statistics
+import time
+from collections import defaultdict
+
+import torch
+
+
+class StageTimer:
+    def __init__(self, device=None):
+        self.samples = defaultdict(list)
+        device = torch.device("cpu") if device is None else torch.device(device)
+        self._sync = device.type == "cuda"
+        self._device = device
+
+    def _now(self) -> float:
+        if self._sync:
+            torch.cuda.synchronize(self._device)
+        return time.perf_counter()
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        t0 = self._now()
+        try:
+            yield
+        finally:
+            self.samples[name].append(self._now() - t0)
+
+    def tic(self, name: str):
+        self._tics = getattr(self, "_tics", {})
+        self._tics[name] = self._now()
+
+    def toc(self, name: str):
+        self.samples[name].append(self._now() - self._tics.pop(name))
+
+    def report(self) -> str:
+        """Median/mean/max per stage; parity with the `/command "time"` dump."""
+        lines = [f"{'stage':<28}{'n':>6}{'median ms':>12}{'mean ms':>12}{'max ms':>12}"]
+        for name, xs in sorted(self.samples.items()):
+            ms = [1000 * x for x in xs]
+            lines.append(
+                f"{name:<28}{len(ms):>6}{statistics.median(ms):>12.2f}"
+                f"{statistics.mean(ms):>12.2f}{max(ms):>12.2f}"
+            )
+        return "\n".join(lines)

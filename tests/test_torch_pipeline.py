@@ -11,6 +11,7 @@ solve to 1e-8."""
 
 import numpy as np
 import pytest
+import torch
 from scipy.spatial.transform import Rotation
 
 from gorio_tpu.io.synthetic import make_world, render_radar_scan, sample_imu, simulate_trajectory
@@ -79,7 +80,8 @@ def test_slam_backend_matches_jax(frames):
     kw = dict(enable_loop_closure=False, keyframe_delta_trans=0.0, keyframe_delta_angle=0.0,
               gyr_var=imu.gyr_var, vel_var=imu.vel_var, gps_edge_intervals=2)
     jslam = js.RadarGraphSLAM(js.SLAMConfig(**kw))
-    tslam = ts.RadarGraphSLAM(config_from_dict(ts.SLAMConfig, jslam.cfg._asdict()))
+    tslam = ts.RadarGraphSLAM(config_from_dict(ts.SLAMConfig, jslam.cfg._asdict()),
+                              device="cpu")
     rng = np.random.default_rng(0)
     for s in (jslam, tslam):
         for t, g in zip(imu.gyr_t, imu.gyr):
@@ -116,3 +118,14 @@ def test_unported_slam_modes_raise():
                      (dict(enable_loop_closure=False, enable_floor_constraint=True), "A10")):
         with pytest.raises(NotImplementedError, match=item):
             ts.RadarGraphSLAM(ts.SLAMConfig(**kw))
+
+
+def test_slam_defaults_to_the_card():
+    """`RadarGraphSLAM()` targets CUDA; without a card it raises instead of
+    falling back to the CPU (as the CLI's `--device cuda` does)."""
+    assert ts.RadarGraphSLAM.device == torch.device("cuda")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ts.RadarGraphSLAM()
+    assert ts.RadarGraphSLAM(device="cpu").device == torch.device("cpu")

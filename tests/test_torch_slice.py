@@ -8,6 +8,7 @@ the RANSAC noise; the LM then stops anywhere inside its 5e-4 m / 2e-3 rad
 convergence box (`lsq.py` epsilons). Keyframe poses must agree within
 5 mm / 5 mrad, and the ATEs within 20% + 1 mm."""
 
+import ast
 import json
 import os
 import subprocess
@@ -99,16 +100,17 @@ def test_cuda_device_without_a_card_raises(runs):
 
 
 def test_port_runs_without_jax(runs, tmp_path):
-    """A process in which `import jax` fails runs the port's whole slice:
+    """A process in which `import jax`, `import jaxlib` and `import
+    gorio_tpu` (and every submodule) fail runs the port's whole slice:
     simulate, slam, evaluate — with the same result as in this process.
-    (An import hook blocks jax: a `sys.modules['jax'] = None` entry trips
+    (An import hook blocks them: a `sys.modules['jax'] = None` entry trips
     scipy's array-API helper, which looks the module up by name.)"""
     d = runs[0]
     code = (
         "import sys\n"
         "class NoJax:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'jaxlib'):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'gorio_tpu'):\n"
         "            raise ImportError(f'{name} is blocked')\n"
         "sys.meta_path.insert(0, NoJax())\n"
         "from gorio_tpu_torch.cli import main\n"
@@ -117,7 +119,8 @@ def test_port_runs_without_jax(runs, tmp_path):
         " '--no-loops', '--capacity', '512', '--device', 'cpu'])\n"
         f"r = main(['evaluate', {str(tmp_path / 'e.tum')!r}, 'seq/groundtruth.tum'])\n"
         "assert r['ate_rmse_m'] < 0.05\n"
-        "assert not [m for m, v in sys.modules.items() if m.startswith('jax') and v is not None]\n"
+        "assert not [m for m, v in sys.modules.items() if v is not None\n"
+        "            and m.split('.')[0] in ('jax', 'jaxlib', 'gorio_tpu')]\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
@@ -125,6 +128,28 @@ def test_port_runs_without_jax(runs, tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     np.testing.assert_allclose(load_tum(tmp_path / "e.tum")[1], load_tum(d / "torch.tum")[1],
                                atol=1e-7)
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in [*(ROOT / "gorio_tpu_torch").rglob("*.py"),
+                                       ROOT / "chip_smoke.py"]
+    if "_build" not in p.relative_to(ROOT).parts))  # build output, not the port
+def test_port_imports_nothing_of_the_jax_package(path):
+    """No module of the port, and not chip_smoke.py, imports jax, jaxlib or
+    the JAX package (`gorio_tpu`, numpy-only modules included), at any
+    depth of the code."""
+    bad = [m for m in _imported_modules(ROOT / path)
+           if m.split(".")[0] in ("jax", "jaxlib", "gorio_tpu")]
+    assert not bad, f"{path} imports {bad}"
 
 
 def test_configs_carry_over_from_jax():
