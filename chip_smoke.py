@@ -27,19 +27,42 @@ Phases, one line each (more for the tables):
                launches), alone (profiler) and per single call, the plain
                version's, the library's (`torch.cdist`, masked `min`, and a
                gather for `nn1_select`) and the bound.
-  4. slice   — the port's CLI: `simulate` (seed 0, 20 s at 5 Hz, capacity
-               2048, 9000 landmarks: 98 frames), `slam --no-loops --device
-               cuda`, `evaluate`. Fails unless the `nn1_select` launches equal
-               the total of the per-frame LM iterations, `nn1` launched too,
-               every keyframe cloud lives on the card, the keyframe count is
-               80 +- 4 and the ATE is <= 0.05 m.
-Then the kernels' JSON line, the card line, and the last line
-`{"ok": true, "device": {...}}`. Any failure exits non-zero with no result.
+               The same checks and timing row at the loop-verification call:
+               B = 32 pairs of N = M = 2048 (the library: batched `cdist`).
+  4. slice   — the port's CLI, its default command: `simulate` (seed 0, 20 s
+               at 5 Hz, capacity 2048, 9000 landmarks: 98 frames), `slam
+               --device cuda` (loop closure on), `evaluate`. Fails unless the
+               `nn1_select` launches equal the per-frame LM iterations plus
+               the loop verification's outer LM iterations, `nn1` launched
+               too, every keyframe cloud lives on the card, loop detection
+               ran (its gate counts are not empty), the keyframe count is
+               80 +- 4, the loop count the JAX package's (0: the 40 m drive
+               never passes the 50 m accumulated-distance gate) and the ATE
+               is <= 0.05 m.
+  5. circuit — the repo's loop sequence at full width: `simulate --duration
+               75 --rate 5 --seed 22 --circuit --laps 2 --dynamic 2` (373
+               frames, two laps of a closed route), `slam --optimize-every 15
+               --device cuda`, `evaluate`. Fails unless the block-sparse
+               solver ran, a candidate pair reached registration
+               verification, a loop was accepted, no accepted loop joins two
+               keyframes more than 7 m apart in ground truth, `nn1_select`
+               launched over a batch of more than one pair, its launches
+               equal the odometry's plus the verification's LM iterations,
+               and the keyframes (+-2%), loops (+-2) and ATE (<= 1.25 x + 0.02
+               m) hold against the JAX package's record of the same run.
+               Prints each graph solve's time per LM iteration (the card
+               synchronised around each) and profiles the last sparse solve
+               once more.
+Both sequences are simulated in child processes started at the beginning,
+beside the build and the kernel phase. Then the kernels' JSON line, the card
+line, and the last line `{"ok": true, "device": {...}}`. Any failure exits
+non-zero with no result.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -55,6 +78,16 @@ MAIN = "main path: (2048, 3) f64 query, f32 ref, bool mask, f32 P=11 payload"
 CALLS = 10  # calls profiled to show that one call is one kernel
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: FP32 FLOP/s off the tensor cores, HBM B/s
 KEYFRAMES, KEYFRAME_TOL, ATE_MAX = 80, 4, 0.05
+VERIFY_B = 32  # loop verification: 2 seeds x up to 16 candidate pairs per batch
+VERIFY = f"loop verification: B={VERIFY_B} pairs of (2048, 3), the main path's types"
+CIRCUIT_SIM = ["--duration", "75", "--rate", "5", "--seed", "22", "--circuit", "--laps", "2",
+               "--dynamic", "2"]
+# The JAX package's record of the same commands (`python -m gorio_tpu.cli`,
+# CPU, JAX_ENABLE_X64=1; PERF.md): the slice has no loop; the circuit
+# 361 keyframes, 13 loops, ATE 0.029995 m
+SLICE_JAX_LOOPS = 0
+CIRCUIT_JAX = {"keyframes": 361, "loops": 13, "ate_m": 0.02999533198297208}
+FALSE_RADIUS_M = 7.0  # RECALL.json's false_radius_m
 
 
 def fail(msg):
@@ -227,6 +260,7 @@ def kernel_phase(K):
     q, r, m, p = inputs(2, 1024, 1500, 0.0)
     m[1] = False  # every ref of the second batch masked
     cases["all refs masked in one batch"] = (q, r, m, p)
+    cases[VERIFY] = inputs(VERIFY_B, MAIN_N, MAIN_N, 0.1)
 
     errs = {}
     for label, (q, r, m, p) in cases.items():
@@ -244,25 +278,7 @@ def kernel_phase(K):
               f"max abs err {e2:.3g})", flush=True)
 
     q, r, m, p = cases[MAIN]
-    qf, rf = q.float(), r.float()
-    bias = torch.where(m, 0.0, 1e12).to(f32)
-
-    def library_nn1():
-        d2, idx = (torch.cdist(qf, rf).square_() + bias).min(dim=-1)
-        return idx, d2
-
-    def library_select():
-        idx, d2 = library_nn1()
-        return idx, d2, p[idx]
-
-    fns = {
-        "nn1": (lambda: K.nn1_best(q, r, m), lambda: K.nn1_plain(q, r, m, compute_dtype=f32),
-                library_nn1),
-        "nn1_select": (lambda: K.nn1_select(q, r, p, m),
-                       lambda: K.nn1_select_plain(q, r, p, m, compute_dtype=f32),
-                       library_select),
-    }
-
+    fns = _timed_fns(K, q, r, m, p)
     # one call at the main path's types is one launch: no cast, pad or copy.
     # The profiler can drop an activity but never adds one, so over CALLS
     # calls it must see nothing but the kernel, and at most CALLS of it.
@@ -274,76 +290,277 @@ def kernel_phase(K):
         print(f"[kernels] {CALLS} {name} calls at the main path's types put {len(acts)} "
               f"activities on the card, all one kernel: {names[0]}", flush=True)
 
-    stats = {}
-    for name, (kernel, plain, library) in fns.items():
-        acts = device_kernels(kernel, 20)
-        kernel_us = statistics.mean(t for n, t in acts if "nn1_kernel" in n)  # kernel alone
-        want = plain()
-        stats[name] = {
-            "ms": per_launch_ms(kernel), "plain_ms": per_launch_ms(plain),
-            "library_ms": per_launch_ms(library), "kernel_ms": kernel_us / 1e3,
-            "call_ms": call_ms(kernel),
-        }
-        stats[name]["bound_ms"], stats[name]["bound_by"] = bound(
-            q, r, m, p if name == "nn1_select" else None,
-            want[2] if name == "nn1_select" else None)
-        st = stats[name]
-        print(f"[kernels] {name} at {MAIN}: {st['ms']:.5f} ms per launch (events around 100), "
-              f"kernel alone {st['kernel_ms']:.5f} ms (profiler, mean of 20), one call "
-              f"{st['call_ms']:.5f} ms (median of 50); plain {st['plain_ms']:.5f} ms, library "
-              f"(cdist + min{' + gather' if name == 'nn1_select' else ''}) "
-              f"{st['library_ms']:.5f} ms; bound {st['bound_ms']:.6f} ms ({st['bound_by']}), "
-              f"kernel alone at {100 * st['bound_ms'] / st['kernel_ms']:.1f}% of it",
+    stats = {name: timing_row(name, fns[name], q, r, m, p, MAIN) for name in fns}
+    for name, st in stats.items():
+        st["call_ms"] = call_ms(fns[name][0])
+        print(f"[kernels] {name} at {MAIN}: one call {st['call_ms']:.5f} ms (median of 50)",
               flush=True)
-    return errs, stats, S_main
+    q, r, m, p = cases[VERIFY]
+    fns = _timed_fns(K, q, r, m, p)
+    stats_b = {name: timing_row(name, fns[name], q, r, m, p, VERIFY) for name in fns}
+    return errs, stats, stats_b, S_main
 
 
-def slice_phase(K):
-    import numpy as np
+def _timed_fns(K, q, r, m, p):
+    """(kernel, plain, library) callables of both kernels on one input. The
+    library: `torch.cdist` on the float32 inputs, squared, plus the mask
+    bias, `min`, and for `nn1_select` a gather of the payload."""
+    import torch
+
+    f32 = torch.float32
+    qf, rf = q.float(), r.float()
+    bias = torch.where(m, 0.0, 1e12).to(f32)
+    if bias.dim() == 2:
+        bias = bias[:, None]
+
+    def library_nn1():
+        d2, idx = (torch.cdist(qf, rf).square_() + bias).min(dim=-1)
+        return idx, d2
+
+    def library_select():
+        idx, d2 = library_nn1()
+        if p.dim() == 2:
+            return idx, d2, p[idx]
+        return idx, d2, torch.gather(p, 1, idx[..., None].expand(*idx.shape, p.shape[-1]))
+
+    return {
+        "nn1": (lambda: K.nn1_best(q, r, m), lambda: K.nn1_plain(q, r, m, compute_dtype=f32),
+                library_nn1),
+        "nn1_select": (lambda: K.nn1_select(q, r, p, m),
+                       lambda: K.nn1_select_plain(q, r, p, m, compute_dtype=f32),
+                       library_select),
+    }
+
+
+def timing_row(name, fns, q, r, m, p, label):
+    """A kernel's time per launch (events around 100), alone (profiler, mean
+    of 20), the plain version's and the library's per launch, and the
+    bound."""
+    kernel, plain, library = fns
+    acts = device_kernels(kernel, 20)
+    kernel_us = statistics.mean(t for n, t in acts if "nn1_kernel" in n)
+    want = plain()
+    st = {"ms": per_launch_ms(kernel), "plain_ms": per_launch_ms(plain),
+          "library_ms": per_launch_ms(library), "kernel_ms": kernel_us / 1e3}
+    st["bound_ms"], st["bound_by"] = bound(q, r, m, p if name == "nn1_select" else None,
+                                           want[2] if name == "nn1_select" else None)
+    print(f"[kernels] {name} at {label}: {st['ms']:.5f} ms per launch (events around 100), "
+          f"kernel alone {st['kernel_ms']:.5f} ms (profiler, mean of 20); plain "
+          f"{st['plain_ms']:.5f} ms, library (cdist + min"
+          f"{' + gather' if name == 'nn1_select' else ''}) {st['library_ms']:.5f} ms; bound "
+          f"{st['bound_ms']:.6f} ms ({st['bound_by']}), kernel alone at "
+          f"{100 * st['bound_ms'] / st['kernel_ms']:.1f}% of it", flush=True)
+    return st
+
+
+def simulate(out, flags):
+    """Start `python -m gorio_tpu_torch.cli simulate` in a child process (a
+    CPU-only numpy job), writing to `out`."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "gorio_tpu_torch.cli", "simulate", "--output", str(out), *flags],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)}, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def wait_for(proc, what, timeout=900):
+    t0 = time.perf_counter()
+    out, _ = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        fail(f"simulate ({what}) exited {proc.returncode}: {out[-2000:]}")
+    print(f"[{what}] {out.strip().splitlines()[-1]} (waited {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+
+def run_slam(K, seq, traj, flags):
+    """One `slam` run of the port's CLI on the card with the launch counts
+    set to 0 just before it and read just after. Returns (slam, odometry,
+    timer, launches, batched launches, wall s, evaluate's result)."""
     import torch
 
     from gorio_tpu_torch.cli import main as cli
 
-    with tempfile.TemporaryDirectory(prefix="gorio_smoke_") as tmp:
-        seq, traj = Path(tmp) / "seq", Path(tmp) / "est.tum"
-        t0 = time.perf_counter()
-        cli(["simulate", "--output", str(seq)])  # the JAX CLI's defaults
-        print(f"[slice] simulate {time.perf_counter() - t0:.1f} s", flush=True)
-        n_frames = len(list(seq.glob("*.grf")))
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    slam, odo, timer = cli(["slam", "--dataset", str(seq), "--output", str(traj), *flags,
+                            "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, batched = dict(K.launch_counts), dict(K.batched_launch_counts)
+    result = cli(["evaluate", str(traj), str(seq / "groundtruth.tum")])
+    return slam, odo, timer, launches, batched, wall, result
 
-        K.reset_launch_counts()
-        t0 = time.perf_counter()
-        slam, odo, timer = cli(["slam", "--dataset", str(seq), "--output", str(traj),
-                                "--no-loops", "--device", "cuda"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(K.launch_counts)
-        result = cli(["evaluate", str(traj), str(seq / "groundtruth.tum")])
+
+def check_common(what, slam, odo, launches):
+    """The checks both runs share: the `nn1_select` launches are the
+    odometry's LM iterations plus the loop verification's outer LM
+    iterations, `nn1` ran, the keyframe clouds live on the card, loop
+    detection ran, the trajectory is finite."""
+    import numpy as np
 
     lm_iters = sum(st.iterations for st in odo.statuses)
-    n_kf = len(slam.keyframes)
+    verify_iters = slam.loop_detector.verify_iterations
+    if launches["nn1_select"] == 0 or launches["nn1_select"] != lm_iters + verify_iters:
+        fail(f"{what}: nn1_select launches {launches['nn1_select']} != odometry LM iterations "
+             f"{lm_iters} + verification LM iterations {verify_iters}")
+    if launches["nn1"] == 0:
+        fail(f"{what}: the nn1 kernel was not launched")
+    devices = {str(t.device) for kf in slam.keyframes for t in kf.cloud}
+    if any(not d.startswith("cuda") for d in devices):
+        fail(f"{what}: keyframe clouds live on {sorted(devices)}")
+    if not slam.loop_detector.gate_counts:
+        fail(f"{what}: loop detection never ran (no gate counts)")
+    if not np.isfinite(slam.trajectory()[1]).all():
+        fail(f"{what}: non-finite poses in the trajectory")
+    return lm_iters, verify_iters
+
+
+def report(what, n_frames, slam, timer, launches, batched, wall, result, lm_iters, verify_iters):
     medians = {k: 1000 * statistics.median(v) for k, v in timer.samples.items()}
-    print(f"[slice] frames {n_frames}, keyframes {n_kf}, LM iterations {lm_iters}, "
-          f"launches {launches}, wall {wall:.2f} s ({n_frames / wall:.2f} frames/s), "
-          f"ATE {result['ate_rmse_m']:.4f} m, RTE {result['rte_m']:.4f} m", flush=True)
-    print("[slice] stage median ms: "
+    print(f"[{what}] frames {n_frames}, keyframes {len(slam.keyframes)}, loops "
+          f"{[(l.key_new, l.key_old, round(float(l.fitness), 4)) for l in slam.loops]}, "
+          f"LM iterations {lm_iters} (odometry) + {verify_iters} (verification), launches "
+          f"{launches} ({batched} over more than one lane), solves {slam.solver_counts}, "
+          f"wall {wall:.2f} s ({n_frames / wall:.2f} frames/s), ATE {result['ate_rmse_m']:.6f} m, "
+          f"RTE {result['rte_m']:.6f} m", flush=True)
+    print(f"[{what}] loop gate counts {slam.loop_detector.gate_counts}", flush=True)
+    print(f"[{what}] stage median ms: "
           + ", ".join(f"{k} {v:.2f}" for k, v in sorted(medians.items())), flush=True)
 
-    if launches["nn1_select"] == 0 or launches["nn1_select"] != lm_iters:
-        fail(f"nn1_select launches {launches['nn1_select']} != LM iterations {lm_iters}")
-    if launches["nn1"] == 0:
-        fail("the nn1 kernel was not launched by the slice")
-    devices = {str(kf.cloud.xyz.device) for kf in slam.keyframes}
-    devices |= {str(t.device) for kf in slam.keyframes for t in kf.cloud}
-    if any(not d.startswith("cuda") for d in devices):
-        fail(f"keyframe clouds live on {sorted(devices)}")
+
+def slice_phase(K, seq, tmp):
+    slam, odo, timer, launches, batched, wall, result = run_slam(K, seq, tmp / "slice.tum", [])
+    lm_iters, verify_iters = check_common("slice", slam, odo, launches)
+    report("slice", len(list(seq.glob("*.grf"))), slam, timer, launches, batched, wall, result,
+           lm_iters, verify_iters)
+    n_kf = len(slam.keyframes)
     if abs(n_kf - KEYFRAMES) > KEYFRAME_TOL:
-        fail(f"{n_kf} keyframes, expected {KEYFRAMES} +- {KEYFRAME_TOL}")
-    _, poses = slam.trajectory()
-    if not np.isfinite(poses).all():
-        fail("non-finite poses in the trajectory")
+        fail(f"slice: {n_kf} keyframes, expected {KEYFRAMES} +- {KEYFRAME_TOL}")
+    if len(slam.loops) != SLICE_JAX_LOOPS:
+        fail(f"slice: {len(slam.loops)} loops, the JAX package accepts {SLICE_JAX_LOOPS}")
     if not result["ate_rmse_m"] <= ATE_MAX:
-        fail(f"ATE {result['ate_rmse_m']} m > {ATE_MAX} m")
+        fail(f"slice: ATE {result['ate_rmse_m']} m > {ATE_MAX} m")
+    return launches
+
+
+class SolveTimer:
+    """Times every graph solve of the slam back end on the card: wraps the
+    dense and the block-sparse solver where `pipeline/slam.py` calls them,
+    synchronising the card around each, and keeps the last sparse call's
+    arguments for a profiled replay. Restores both on exit."""
+
+    def __init__(self):
+        import gorio_tpu_torch.pipeline.slam as slam_mod
+
+        self.mod, self.solves, self.last_sparse = slam_mod, [], None
+        self.orig = {"dense": slam_mod.optimize_graph, "sparse": slam_mod.optimize_graph_sparse}
+
+    def _wrap(self, kind):
+        import torch
+
+        def timed(poses0, graph, cfg):
+            if kind == "sparse":
+                self.last_sparse = (poses0, graph, cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = self.orig[kind](poses0, graph, cfg)
+            torch.cuda.synchronize()
+            self.solves.append((kind, poses0.shape[0], int(res.iterations),
+                                time.perf_counter() - t0))
+            return res
+        return timed
+
+    def __enter__(self):
+        self.mod.optimize_graph, self.mod.optimize_graph_sparse = (
+            self._wrap("dense"), self._wrap("sparse"))
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.optimize_graph, self.mod.optimize_graph_sparse = (
+            self.orig["dense"], self.orig["sparse"])
+
+    def report(self):
+        """Per solver and padded pose count: solves, LM iterations, seconds,
+        ms per LM iteration; then the last sparse solve's first three LM
+        iterations replayed under the profiler: device activities and device
+        busy time per LM iteration."""
+        import torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        rows = {}
+        for kind, K, iters, dt in self.solves:
+            r = rows.setdefault((kind, K), [0, 0, 0.0])
+            r[0], r[1], r[2] = r[0] + 1, r[1] + iters, r[2] + dt
+        for (kind, K), (n, iters, dt) in sorted(rows.items()):
+            print(f"[circuit] {kind} solves at {K} padded poses: {n} solves, {iters} LM "
+                  f"iterations, {dt:.3f} s, {1e3 * dt / max(iters, 1):.2f} ms per LM "
+                  f"iteration", flush=True)
+        if self.last_sparse is None:
+            return
+        # three LM iterations are enough for the per-iteration numbers, and
+        # the profiler's host-side event list grows with every kernel
+        poses0, graph, cfg = self.last_sparse
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res = self.orig["sparse"](poses0, graph, cfg._replace(max_iterations=3))
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        iters = int(res.iterations)
+        busy = sum(e.device_time_total for e in acts) / 1e3
+        print(f"[circuit] the last sparse solve replayed under the profiler "
+              f"({poses0.shape[0]} padded poses, {cfg.loop_capacity} loop slots): {iters} LM "
+              f"iterations, "
+              f"{len(acts) / iters:.0f} device activities and {busy / iters:.3f} ms of device "
+              f"time per LM iteration, wall {1e3 * wall / iters:.2f} ms per LM iteration "
+              f"(profiled), device busy {100 * busy / (1e3 * wall):.1f}%", flush=True)
+
+
+def circuit_phase(K, seq, tmp):
+    import numpy as np
+
+    from gorio_tpu_torch.io.tum import load_tum
+
+    with SolveTimer() as solves:
+        slam, odo, timer, launches, batched, wall, result = run_slam(
+            K, seq, tmp / "circuit.tum", ["--optimize-every", "15"])
+    lm_iters, verify_iters = check_common("circuit", slam, odo, launches)
+    report("circuit", len(list(seq.glob("*.grf"))), slam, timer, launches, batched, wall,
+           result, lm_iters, verify_iters)
+    det = slam.loop_detector
+    # ground-truth distance between the endpoints of each accepted loop, at
+    # the keyframe stamps (as scripts/recall_benchmark.py measures it)
+    gs, gp = load_tum(seq / "groundtruth.tum")
+    stamps = np.asarray([kf.stamp for kf in slam.keyframes])
+    pos = np.stack([np.interp(stamps, gs, gp[:, k, 3]) for k in range(3)], axis=1)
+    gaps = [float(np.linalg.norm(pos[l.key_new] - pos[l.key_old])) for l in slam.loops]
+    print(f"[circuit] pairs verified {len(det.candidate_log)}, accepted loops' ground-truth "
+          f"endpoint gaps (m) {[round(g, 3) for g in gaps]}", flush=True)
+    solves.report()
+
+    n_kf, n_loops, ate = len(slam.keyframes), len(slam.loops), result["ate_rmse_m"]
+    ate_max = 1.25 * CIRCUIT_JAX["ate_m"] + 0.02
+    if slam.solver_counts["sparse"] == 0:
+        fail(f"circuit: the block-sparse solver never ran ({slam.solver_counts})")
+    if not det.candidate_log:
+        fail(f"circuit: no candidate pair reached registration verification "
+             f"({det.gate_counts})")
+    if CIRCUIT_JAX["loops"] and not n_loops:
+        fail("circuit: no loop accepted")
+    if any(g > FALSE_RADIUS_M for g in gaps):
+        fail(f"circuit: a false loop, endpoints {max(gaps):.2f} m > {FALSE_RADIUS_M} m apart")
+    if batched["nn1_select"] == 0:
+        fail("circuit: nn1_select never launched over more than one lane")
+    if abs(n_kf - CIRCUIT_JAX["keyframes"]) > 0.02 * CIRCUIT_JAX["keyframes"]:
+        fail(f"circuit: {n_kf} keyframes, the JAX record {CIRCUIT_JAX['keyframes']} +- 2%")
+    if abs(n_loops - CIRCUIT_JAX["loops"]) > 2:
+        fail(f"circuit: {n_loops} loops, the JAX record {CIRCUIT_JAX['loops']} +- 2")
+    if not ate <= ate_max:
+        fail(f"circuit: ATE {ate} m > {ate_max} m (1.25 x the JAX record + 0.02 m)")
+    print(f"[circuit] keyframes {n_kf} (JAX {CIRCUIT_JAX['keyframes']}), loops {n_loops} "
+          f"(JAX {CIRCUIT_JAX['loops']}), ATE {ate:.6f} m (JAX {CIRCUIT_JAX['ate_m']:.6f} m, "
+          f"limit {ate_max:.6f} m)", flush=True)
     return launches
 
 
@@ -362,6 +579,25 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    with tempfile.TemporaryDirectory(prefix="gorio_smoke_") as tmp:
+        tmp = Path(tmp)
+        sims = {"slice": simulate(tmp / "slice", []),  # the JAX CLI's defaults
+                "circuit": simulate(tmp / "circuit", CIRCUIT_SIM)}
+        try:
+            kernels = run_phases(tmp, sims)
+        finally:
+            for proc in sims.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+
+
+def run_phases(tmp, sims):
     from gorio_tpu_torch.io import native
     from gorio_tpu_torch.ops import nn as K
 
@@ -378,21 +614,23 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"[build] {line.strip()}", flush=True)
 
-    errs, stats, S_main = kernel_phase(K)
-    launches = slice_phase(K)
+    errs, stats, stats_b, S_main = kernel_phase(K)
+    wait_for(sims["slice"], "slice")
+    launches = {"slice": slice_phase(K, tmp / "slice", tmp)}
+    wait_for(sims["circuit"], "circuit")
+    launches["circuit"] = circuit_phase(K, tmp / "circuit", tmp)
 
     replaces = {"nn1": "gorio_tpu/ops/nn_pallas.py:34",
                 "nn1_select": "gorio_tpu/ops/nn_pallas.py:125"}
     kernels = [
         {"name": name, "route": "cuda", "source": "gorio_tpu_torch/ops/csrc/nn1.cu",
-         "replaces": replaces[name], "launches": launches[name], "max_abs_err": errs[name],
-         **stats[name], "cluster": S_main, "shape": MAIN}
+         "replaces": replaces[name], "launches": launches["circuit"][name],
+         "launches_by_path": {path: counts[name] for path, counts in launches.items()},
+         "max_abs_err": errs[name], **stats[name], "cluster": S_main, "shape": MAIN,
+         "verify_batch": {**stats_b[name], "shape": VERIFY}}
         for name in ("nn1", "nn1_select")
     ]
-    print(json.dumps({"kernels": kernels}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                             "count": torch.cuda.device_count()}}))
+    return kernels
 
 
 if __name__ == "__main__":

@@ -6,11 +6,11 @@
 
 Usage: python -m gorio_tpu_torch.cli <command> [args]
 
-`slam` accepts every flag of `python -m gorio_tpu.cli slam`; the ones that
-need a module the port does not have yet raise NotImplementedError naming
-the ROADMAP item that ports it. The port runs with loops disabled
-(`--no-loops`) and the dense solver (up to 128 padded poses). `--device`
-picks the torch device (default cuda); there is no fallback to the CPU.
+`slam` accepts every flag of `python -m gorio_tpu.cli slam` and, like it,
+runs loop closure unless `--no-loops`; the flags that need a module the port
+does not have yet raise NotImplementedError naming the ROADMAP item that
+ports it. `--device` picks the torch device (default cuda); there is no
+fallback to the CPU.
 """
 
 from __future__ import annotations
@@ -92,13 +92,11 @@ def _check_slam_flags(args):
     """Refuse the flags whose modules are not ported yet."""
     refused = [
         (args.config, "--config (the typed config tree)", "A13"),
-        (not args.no_loops, "loop closure (the default; pass --no-loops)", "A8"),
         (args.fused, "--fused", "A10"),
         (args.preprocess, "--preprocess", "A10"),
         (args.floor, "--floor", "A10"),
         (args.preint == "ugpm", "--preint ugpm", "A11"),
         (args.registration == "ndt", "--registration ndt", "A12"),
-        (args.optimize_window, "--optimize-window", "A7-sparse"),
         (args.dump, "--dump", "A13"),
         (args.map, "--map", "A13"),
     ]
@@ -130,7 +128,7 @@ def cmd_slam(args):
     imu = np.load(src / "imu.npz")
     slam = RadarGraphSLAM(
         SLAMConfig(
-            enable_loop_closure=False,
+            enable_loop_closure=not args.no_loops,
             preint_mode=args.preint,
             gyr_var=float(imu["gyr_var"]),
             vel_var=float(imu["vel_var"]),
@@ -176,14 +174,14 @@ def cmd_slam(args):
         with timer.stage("backend"):
             slam.add_frame(float(stamp), cloud, pose)
             if args.optimize_every and len(slam.keyframes) % args.optimize_every == 0:
-                slam.optimize()
+                slam.optimize(window=args.optimize_window or None)
         n += 1
     with timer.stage("final_optimize"):
         slam.optimize()
     stamps, poses = slam.trajectory()
     save_tum(args.output, stamps, poses)
-    print(f"processed {n} frames -> {len(slam.keyframes)} keyframes, 0 loops; "
-          f"trajectory: {args.output}")
+    print(f"processed {n} frames -> {len(slam.keyframes)} keyframes, "
+          f"{len(slam.loops)} loops; trajectory: {args.output}")
     print(timer.report())
     if args.timing_out:
         with open(args.timing_out, "w") as fh:
@@ -194,9 +192,17 @@ def cmd_slam(args):
                     },
                     "n_frames": n,
                     "n_keyframes": len(slam.keyframes),
-                    "n_loops": 0,
-                    "loops": [],
+                    "n_loops": len(slam.loops),
+                    # per-gate loop-closure rejection counts
+                    "loop_gate_counts": slam.loop_detector.gate_counts,
+                    # accepted loops as [key_new, key_old, fitness]
+                    "loops": [
+                        [int(l.key_new), int(l.key_old), round(float(l.fitness), 4)]
+                        for l in slam.loops
+                    ],
                     "lm_iterations": sum(st.iterations for st in odo.statuses),
+                    "verify_lm_iterations": slam.loop_detector.verify_iterations,
+                    "solver_counts": slam.solver_counts,
                     "keyframe_stamps": [round(float(s), 6) for s in stamps],
                     "point_distribution": (point_dist / max(n, 1)).round(2).tolist(),
                     "device": str(device),

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .core.pointcloud import PointCloud
+from .loopclosure.scancontext import ScanContextDB
 from .graph.factors import (
     BetweenFactors,
     GraphData,
@@ -54,9 +55,10 @@ def graph_from_numpy(graph, device=None) -> GraphData:
 
 def config_from_dict(cls, data):
     """A JAX config (NamedTuple or dict, nested configs included) -> the
-    port's config class `cls`. Nested configs of ported modules are
-    converted recursively; configs of modules the port does not have yet
-    (NDT, ground segmentation, UGPM, loop closure) are kept as plain dicts.
+    port's config class `cls` (`SLAMConfig`, `LoopConfig`,
+    `ScanContextConfig`, `SolveConfig`, ...). Nested configs of ported
+    modules are converted recursively; configs of modules the port does not
+    have yet (NDT, ground segmentation, UGPM) are kept as plain dicts.
     Unknown field names raise."""
     d = _fields(data)
     unknown = set(d) - set(cls._fields)
@@ -72,3 +74,12 @@ def config_from_dict(cls, data):
         else:
             kw[k] = v
     return cls(**kw)
+
+
+def scancontext_db_from_numpy(db, device=None) -> ScanContextDB:
+    """A JAX `ScanContextDB` (or a dict of its arrays) -> the port's, with
+    the same capacity, dtype and count."""
+    d = _fields(db)
+    return ScanContextDB(descs=torch.as_tensor(np.array(d["descs"]), device=device),
+                         ring_keys=torch.as_tensor(np.array(d["ring_keys"]), device=device),
+                         count=int(d["count"]))

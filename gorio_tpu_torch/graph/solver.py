@@ -9,8 +9,9 @@ by a dense Cholesky. The JAX `lax.while_loop` becomes a Python loop with
 the same bound and the same accept/reject rule; the host reads the stop
 flag once per iteration.
 
-The block-sparse solver (`graph/sparse.py`, above 128 poses) and the CG
-option are not ported yet (ROADMAP A7-sparse).
+The block-sparse direct solver is `graph/sparse.py` (the SLAM back end
+switches to it above 128 padded poses); the CG option is not ported yet
+(ROADMAP A7-sparse-cg).
 """
 
 from __future__ import annotations
@@ -38,7 +39,9 @@ class SolveConfig(NamedTuple):
     lm_lambda_init: float = 1e-6
     lm_lambda_factor: float = 10.0
     rel_tol: float = 1e-9
-    solver: str = "dense"  # "dense" here; "cg" | "direct" with ROADMAP A7-sparse
+    # "dense" | "direct" (the sparse path's exact solve; a dense solve here) |
+    # "cg" (ROADMAP A7-sparse-cg)
+    solver: str = "dense"
     cg_iters: int = 100
     loop_capacity: int = 64
     # freeze pose 0 (default off: the anchor prior fixes the gauge)
@@ -155,9 +158,9 @@ def _solve_dense(H, b, lam):
 def optimize_graph(poses0, graph: GraphData, cfg: SolveConfig = SolveConfig()) -> SolveResult:
     """LM optimization; the gauge is fixed by the anchor prior or, with
     cfg.fix_first, by freezing pose 0."""
-    if cfg.solver != "dense":
+    if cfg.solver == "cg":
         raise NotImplementedError(
-            f"solver={cfg.solver!r} comes with the block-sparse solver (ROADMAP A7-sparse)"
+            "solver='cg' (Jacobi-preconditioned CG) is not ported yet (ROADMAP A7-sparse-cg)"
         )
     K = poses0.shape[0]
     dtype, device = poses0.dtype, poses0.device

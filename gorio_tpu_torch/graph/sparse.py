@@ -1,0 +1,414 @@
+"""Block-sparse pose-graph solver: block-tridiagonal (chain) factorization
+plus an exact Woodbury correction for the loop-closure edges.
+
+Port of the pose-only half of `gorio_tpu/graph/sparse.py` (g2o's sparse
+backend, `graph_slam.cpp:353-382`, solver `lm_var_cholmod`). The normal
+equations live as block arrays, never as a (6K)^2 matrix:
+
+    Hdiag (K,6,6)   one 6x6 block per pose (all unary + binary self terms)
+    Hoff  (E,6,6)   one 6x6 block per binary factor e: H[i_e, j_e]
+
+A SLAM graph is a chain of odometry / preintegration factors plus a few loop
+closures and unary priors, so H = T + G^T G: T block tridiagonal, G the
+whitened Jacobians of the L loop edges. `solve_tridiag_woodbury` factorizes
+T once, solves it for [b | G^T] in one multi-RHS pass and corrects with a
+(6L)^2 Cholesky: an exact direct solve.
+
+The JAX package runs the tridiagonal recurrences as `lax.scan`s. Here every
+step is a handful of batched 6x6 (or 12x12) tensor ops, so sequential depth
+is what costs host launches: for K a multiple of 32 and K >= 64 (every
+padded pose count from 64 on) the SPIKE partition solves the S = K / 32
+groups' interiors as one batch (32 steps each way) and couples them through
+an S-step reduced system, ~2 * 32 + S steps instead of ~2K.
+
+Matrix products keep full float32 on the card (`allow_tf32 = False`, the
+JAX package's `_f32_matmuls`): TF32 would floor the LM's chi2 the way the
+TPU's bf16 passes did.
+
+`solver="cg"` (ROADMAP A7-sparse-cg) and the joint pose+plane solver
+`optimize_graph_with_planes_sparse` (ROADMAP A10) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import functools
+from types import SimpleNamespace
+from typing import NamedTuple
+
+import torch
+
+from .factors import BetweenFactors, GraphData, retract
+from .solver import SolveConfig, _binary_terms, _unary_families, _unary_terms, _weighted, graph_chi2
+
+
+class SparseSolveResult(NamedTuple):
+    poses: torch.Tensor  # (K, 4, 4)
+    chi2: torch.Tensor
+    iterations: torch.Tensor  # () int, on the CPU
+    lm_lambda: torch.Tensor
+    H_diag: torch.Tensor  # (K, 6, 6) diagonal blocks of H at the last linearization
+
+
+def _f32_matmuls(fn):
+    """Run `fn` with TF32 off for cuBLAS matmuls (restored afterwards)."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+
+    return wrapped
+
+
+def _t(M):
+    return M.transpose(-1, -2)
+
+
+# ---------------------------------------------------------------------------
+# Block normal equations
+# ---------------------------------------------------------------------------
+
+
+def build_block_normal_equations(poses, graph: GraphData):
+    """(Hdiag (K,6,6), Hoff (E,6,6), b (K,6), chi2): the block form of
+    `solver.build_normal_equations` without the (K,K,6,6) tensor."""
+    K = poses.shape[0]
+    Hdiag = torch.zeros((K, 6, 6), dtype=poses.dtype, device=poses.device)
+    b = torch.zeros((K, 6), dtype=poses.dtype, device=poses.device)
+
+    f = graph.between
+    r, Ji, Jj = _binary_terms(poses, f, BetweenFactors.residual, (f.T_meas,))
+    rw, w, chi2 = _weighted(r, f.sqrt_info, f.robust_delta, f.mask)
+    Jiw = torch.einsum("fij,fjk->fik", f.sqrt_info, Ji)
+    Jjw = torch.einsum("fij,fjk->fik", f.sqrt_info, Jj)
+    Hdiag = Hdiag.index_put((f.i,), torch.einsum("fji,fjk,f->fik", Jiw, Jiw, w), accumulate=True)
+    Hdiag = Hdiag.index_put((f.j,), torch.einsum("fji,fjk,f->fik", Jjw, Jjw, w), accumulate=True)
+    Hoff = torch.einsum("fji,fjk,f->fik", Jiw, Jjw, w)  # H[i_e, j_e]
+    b = b.index_put((f.i,), torch.einsum("fji,fj,f->fi", Jiw, rw, w), accumulate=True)
+    b = b.index_put((f.j,), torch.einsum("fji,fj,f->fi", Jjw, rw, w), accumulate=True)
+
+    for fac, res_fn, meas in _unary_families(graph):
+        r, Ji = _unary_terms(poses, fac, res_fn, meas)
+        rw, w, c2 = _weighted(r, fac.sqrt_info, fac.robust_delta, fac.mask)
+        Jiw = torch.einsum("fij,fjk->fik", fac.sqrt_info, Ji)
+        Hdiag = Hdiag.index_put((fac.i,), torch.einsum("fji,fjk,f->fik", Jiw, Jiw, w),
+                                accumulate=True)
+        b = b.index_put((fac.i,), torch.einsum("fji,fj,f->fi", Jiw, rw, w), accumulate=True)
+        chi2 = chi2 + c2
+    return Hdiag, Hoff, b, chi2
+
+
+# ---------------------------------------------------------------------------
+# Block-tridiagonal factorization (block-Thomas)
+# ---------------------------------------------------------------------------
+
+
+def _chain_upper_blocks(Hoff, fi, fj, K, dtype):
+    """(K-1, 6, 6) consecutive blocks C[k] = H[k, k+1], gathered from the
+    per-factor off-diagonal blocks (non-chain factors contribute nothing)."""
+    C = torch.zeros((K, 6, 6), dtype=dtype, device=Hoff.device)
+    zero = torch.zeros_like(Hoff)
+    fwd = (fj == fi + 1)[:, None, None]
+    C = C.index_put((fi,), torch.where(fwd, Hoff, zero), accumulate=True)
+    rev = (fi == fj + 1)[:, None, None]  # stored as (k+1, k): H[k, k+1] = Hoff^T
+    C = C.index_put((fj,), torch.where(rev, _t(Hoff), zero), accumulate=True)
+    return C[: K - 1]
+
+
+def _inv3c(M):
+    """Closed-form batched 3x3 inverse (adjugate / det). Row k of the
+    cofactor matrix is the cross product of rows k+1 and k+2 (cyclic), the
+    same products and differences as the JAX package's expanded form, in a
+    handful of tensor ops instead of dozens: the sparse solve launches this
+    once per block per sequential step."""
+    cof = torch.linalg.cross(torch.roll(M, -1, dims=-2), torch.roll(M, 1, dims=-2), dim=-1)
+    det = torch.sum(M[..., 0, :] * cof[..., 0, :], dim=-1)
+    inv_det = 1.0 / torch.where(torch.abs(det) > 1e-30, det, torch.full_like(det, 1e-30))
+    return _t(cof) * inv_det[..., None, None]
+
+
+def _eye_like(n, M):
+    return torch.eye(n, dtype=M.dtype, device=M.device).expand(M.shape)
+
+
+def inv6_spd(M):
+    """Closed-form batched inverse of an SPD 6x6 through the 3x3-block Schur
+    complement, then one Newton-Schulz step X (2I - M X), which squares the
+    residual of the adjugate-based inverse (mixed information scales:
+    anchor priors at 1e6 against edges at 1e1)."""
+    P, Q, S = M[..., :3, :3], M[..., :3, 3:], M[..., 3:, 3:]
+    Pinv = _inv3c(P)
+    PinvQ = Pinv @ Q
+    Scinv = _inv3c(S - _t(Q) @ PinvQ)
+    TR = -PinvQ @ Scinv
+    TL = Pinv - TR @ _t(PinvQ)
+    X = torch.cat([torch.cat([TL, TR], -1), torch.cat([_t(TR), Scinv], -1)], -2)
+    return X @ (2.0 * _eye_like(6, X) - M @ X)
+
+
+def block_tridiag_factor(A, C):
+    """Block-Thomas factorization of the SPD block tridiagonal (A_k, C_k)
+    along axis -3 (any leading batch axes): returns Dinv (..., K, 6, 6) with
+    D_0 = A_0, D_k = A_k - C_{k-1}^T D_{k-1}^{-1} C_{k-1}."""
+    Dinv = [inv6_spd(A[..., 0, :, :])]
+    for k in range(1, A.shape[-3]):
+        Ck = C[..., k - 1, :, :]
+        Dinv.append(inv6_spd(A[..., k, :, :] - _t(Ck) @ Dinv[-1] @ Ck))
+    return torch.stack(Dinv, dim=-3)
+
+
+def block_tridiag_solve(Dinv, C, b):
+    """Solve the block-tridiagonal system given its block-Thomas factors.
+    b (..., K, 6, R): the extra right-hand-side columns ride along."""
+    K = b.shape[-3]
+    z = [b[..., 0, :, :]]
+    for k in range(1, K):
+        z.append(b[..., k, :, :] - _t(C[..., k - 1, :, :]) @ (Dinv[..., k - 1, :, :] @ z[-1]))
+    x = [Dinv[..., K - 1, :, :] @ z[K - 1]]
+    for k in range(K - 2, -1, -1):
+        x.append(Dinv[..., k, :, :] @ (z[k] - C[..., k, :, :] @ x[-1]))
+    return torch.stack(x[::-1], dim=-3)
+
+
+# ---------------------------------------------------------------------------
+# SPIKE partitioned block-tridiagonal solve
+# ---------------------------------------------------------------------------
+
+
+def _schur_inverse(M, half, inv_half):
+    """General inverse of (..., 2h, 2h) through the h x h block Schur
+    complement (no pivoting)."""
+    P, Q = M[..., :half, :half], M[..., :half, half:]
+    Rb, S = M[..., half:, :half], M[..., half:, half:]
+    Pinv = inv_half(P)
+    PinvQ = Pinv @ Q
+    Scinv = inv_half(S - Rb @ PinvQ)
+    TR = -PinvQ @ Scinv
+    BL = -Scinv @ (Rb @ Pinv)
+    TL = Pinv - PinvQ @ BL
+    return torch.cat([torch.cat([TL, TR], -1), torch.cat([BL, Scinv], -1)], -2)
+
+
+def _inv6_gen(M):
+    """Closed-form general 6x6 inverse (3x3-block Schur, no pivoting: the
+    SPIKE interface blocks are near identity)."""
+    return _schur_inverse(M, 3, _inv3c)
+
+
+def _inv12_gen(M):
+    """Closed-form general 12x12 inverse via 6x6-block Schur on `_inv6_gen`,
+    plus one Newton-Schulz step."""
+    X = _schur_inverse(M, 6, _inv6_gen)
+    return X @ (2.0 * _eye_like(12, X) - M @ X)
+
+
+def _general_block_tridiag_solve(M, L, U, h):
+    """Non-symmetric block-tridiagonal solve (LU-Thomas) of the block rows
+    M_s u_s + L_s u_{s-1} + U_s u_{s+1} = h_s; M/L/U (S,d,d), h (S,d,R)."""
+    D0inv = _inv12_gen(M[0])
+    G, y = [D0inv @ U[0]], [D0inv @ h[0]]
+    for s in range(1, M.shape[0]):
+        Dinv = _inv12_gen(M[s] - L[s] @ G[-1])
+        G.append(Dinv @ U[s])
+        y.append(Dinv @ (h[s] - L[s] @ y[-1]))
+    x = [y[-1]]
+    for s in range(M.shape[0] - 2, -1, -1):
+        x.append(y[s] - G[s] @ x[-1])
+    return torch.stack(x[::-1])
+
+
+def solve_block_tridiag_spike(A, C, b, m=32):
+    """Exact solve of the SPD block tridiagonal (A (K,6,6), C (K-1,6,6))
+    against b (K,6,R), partitioned into S = K // m groups of m rows. Needs
+    m | K and K >= 2m (callers take the sequential Thomas otherwise).
+
+    Every group's interior is factorized and solved as one batch for its
+    right-hand side and its two coupling spikes; the groups' first and last
+    rows then form a reduced block-tridiagonal system of S 12-blocks,
+    solved sequentially; a batched back-substitution finishes."""
+    K = A.shape[0]
+    R = b.shape[-1]
+    S = K // m
+    Ag = A.reshape(S, m, 6, 6)
+    Cpad = torch.cat([C, C.new_zeros(1, 6, 6)])  # (K, 6, 6)
+    Cg = Cpad.reshape(S, m, 6, 6)
+    Cg_int = Cg[:, : m - 1]
+    Cint = Cg[: S - 1, m - 1]  # couples group s's last row to group s+1's first
+
+    Dinv_g = block_tridiag_factor(Ag, Cg_int)
+    # per-group right-hand side: [b | spike V (6 cols) | spike W (6 cols)]
+    rhs = b.new_zeros(S, m, 6, R + 12)
+    rhs[..., :R] = b.reshape(S, m, 6, R)
+    rhs[: S - 1, m - 1, :, R: R + 6] = Cint  # V_s = D_s^-1 e_{m-1} Cint[s]
+    rhs[1:, 0, :, R + 6:] = _t(Cint)  # W_s = D_s^-1 e_0 Cint[s-1]^T
+    sol = block_tridiag_solve(Dinv_g, Cg_int, rhs)  # (S, m, 6, R + 12)
+    g, V, W = sol[..., :R], sol[..., R: R + 6], sol[..., R + 6:]
+
+    # reduced system over u_s = (x_{s,0}, x_{s,m-1}):
+    #   u_s + L_s u_{s-1} + U_s u_{s+1} = h_s
+    z2 = A.new_zeros(S, 6, 6)
+    Lred = torch.cat([torch.cat([z2, W[:, 0]], -1), torch.cat([z2, W[:, m - 1]], -1)], -2)
+    Ured = torch.cat([torch.cat([V[:, 0], z2], -1), torch.cat([V[:, m - 1], z2], -1)], -2)
+    Mred = torch.eye(12, dtype=A.dtype, device=A.device).expand(S, 12, 12)
+    hred = torch.cat([g[:, 0], g[:, m - 1]], -2)  # (S, 12, R)
+    u = _general_block_tridiag_solve(Mred, Lred, Ured, hred)
+    y, z = u[:, :6], u[:, 6:]  # x_{s,0}, x_{s,m-1}
+
+    # back-substitution, all groups at once: x_s = g_s - V_s y_{s+1} - W_s z_{s-1}
+    y_next = torch.cat([y[1:], y.new_zeros(1, 6, R)])
+    z_prev = torch.cat([z.new_zeros(1, 6, R), z[: S - 1]])
+    x = g - torch.einsum("smij,sjr->smir", V, y_next) - torch.einsum("smij,sjr->smir", W, z_prev)
+    return x.reshape(K, 6, R)
+
+
+# ---------------------------------------------------------------------------
+# Exact direct solve: block tridiagonal + Woodbury loop-closure correction
+# ---------------------------------------------------------------------------
+
+
+def _loop_slots(between, loop_capacity):
+    """`jnp.nonzero(is_loop, size=loop_capacity, fill_value=0)` without a
+    host sync: the indices of the first `loop_capacity` non-adjacent
+    ("loop") between edges in order, padded with 0; later loops are
+    dropped. Returns (sel (Lcap,) int64, lmask (Lcap,) = is_loop[sel])."""
+    fi, fj = between.i, between.j
+    is_loop = between.mask & (fj != fi + 1) & (fi != fj + 1)
+    pos = torch.cumsum(is_loop.to(torch.int64), 0) - 1
+    slot = torch.where(is_loop & (pos < loop_capacity), pos, torch.full_like(pos, loop_capacity))
+    sel = torch.zeros(loop_capacity + 1, dtype=torch.int64, device=fi.device)
+    sel = sel.scatter(0, slot, torch.arange(fi.shape[0], device=fi.device))[:loop_capacity]
+    return sel, is_loop[sel]
+
+
+def solve_tridiag_woodbury(A, C, poses, between, b, loop_capacity):
+    """Exact solve of H x = b, H = the block tridiagonal (A, C) + the loop
+    between edges. Each loop edge enters in PSD form g_e^T g_e with
+    g_e = sqrt(w_e) [S_e J_i | S_e J_j] (6 rows), so H = T' + G^T G with T'
+    the tridiagonal minus the loop edges' diagonal blocks, and Woodbury
+    needs the SPD capacitance I + G T'^-1 G^T: a (6L)^2 Cholesky.
+
+    A (K,6,6) damped diagonal blocks (loop-edge diagonal terms included;
+    they are subtracted here), C (K-1,6,6) chain blocks, `poses`/`between`
+    the linearization state, b (K,6) or (K,6,Rb). `loop_capacity` bounds
+    the loop edges taken, in order; later ones are left out of the
+    correction, as in the JAX package."""
+    squeeze = b.dim() == 2
+    if squeeze:
+        b = b[..., None]
+    Rb, K = b.shape[-1], b.shape[0]
+    Lcap = loop_capacity
+    sel, lmask = _loop_slots(between, Lcap)
+    li, lj = between.i[sel], between.j[sel]
+
+    # the selected edges' whitened Jacobians, recomputed (O(Lcap))
+    r, Ji, Jj = _binary_terms(poses, SimpleNamespace(i=li, j=lj), BetweenFactors.residual,
+                              (between.T_meas[sel],))
+    sq = between.sqrt_info[sel]
+    _, w, _ = _weighted(r, sq, between.robust_delta[sel], lmask)
+    sw = torch.sqrt(w)[:, None, None]
+    Giw = sw * torch.einsum("eij,ejk->eik", sq, Ji)  # (L, 6, 6): g_e's columns at li
+    Gjw = sw * torch.einsum("eij,ejk->eik", sq, Jj)
+
+    # T' = the tridiagonal minus the loop edges' diagonal contributions
+    A = A.index_put((li,), -torch.einsum("eji,ejk->eik", Giw, Giw), accumulate=True)
+    A = A.index_put((lj,), -torch.einsum("eji,ejk->eik", Gjw, Gjw), accumulate=True)
+
+    R = 6 * Lcap
+    # right-hand side [b | G^T]: G^T's columns live at rows li (Giw^T), lj (Gjw^T)
+    rows6 = torch.arange(6, device=b.device)
+    cols = Rb + 6 * torch.arange(Lcap, device=b.device)[:, None, None] + rows6[None, None, :]
+    rhs = b.new_zeros(K, 6, Rb + R)
+    rhs[..., :Rb] = b
+    rhs = rhs.index_put((li[:, None, None], rows6[None, :, None], cols), _t(Giw), accumulate=True)
+    rhs = rhs.index_put((lj[:, None, None], rows6[None, :, None], cols), _t(Gjw), accumulate=True)
+
+    if K % 32 == 0 and K >= 64:
+        sol = solve_block_tridiag_spike(A, C, rhs, m=32)
+    else:
+        sol = block_tridiag_solve(block_tridiag_factor(A, C), C, rhs)
+    x0, Y = sol[..., :Rb], sol[..., Rb:]  # Y = T'^-1 G^T (K, 6, R)
+
+    def G_apply(V):  # V (K, 6, n) -> G V (R, n)
+        return (torch.einsum("eij,ejn->ein", Giw, V[li])
+                + torch.einsum("eij,ejn->ein", Gjw, V[lj])).reshape(R, -1)
+
+    cap = torch.eye(R, dtype=b.dtype, device=b.device) + G_apply(Y)  # SPD capacitance
+    Lc, info = torch.linalg.cholesky_ex(cap)
+    z = torch.cholesky_solve(G_apply(x0), Lc)
+    z = torch.where(info == 0, z, torch.full_like(z, float("nan")))  # as JAX's Cholesky
+    out = x0 - torch.einsum("kir,rn->kin", Y, z)
+    return out[..., 0] if squeeze else out
+
+
+# ---------------------------------------------------------------------------
+# Pose-only solver
+# ---------------------------------------------------------------------------
+
+
+def _damped(Hdiag, lam):
+    """Hdiag + lam * diag(max(diag Hdiag, 1)) per block."""
+    d = torch.diagonal(Hdiag, dim1=-2, dim2=-1)  # (K, 6)
+    return Hdiag + torch.diag_embed(lam * torch.clamp(d, min=1.0))
+
+
+@_f32_matmuls
+def optimize_graph_sparse(poses0, graph: GraphData, cfg: SolveConfig = SolveConfig()
+                          ) -> SparseSolveResult:
+    """LM over the block-sparse normal equations with the exact
+    tridiagonal + Woodbury solve (`solver="direct"`). Semantics match
+    `optimize_graph` (same factors, damping, accept rule): only the linear
+    solve differs. The host reads the stop flag once per iteration."""
+    if cfg.solver != "direct":
+        raise NotImplementedError(
+            f"sparse solver={cfg.solver!r}: only 'direct' is ported; the CG option is "
+            "ROADMAP A7-sparse-cg"
+        )
+    K = poses0.shape[0]
+    dtype, device = poses0.dtype, poses0.device
+    f = graph.between
+    # under fix_first an edge touching pose 0 degenerates to a diagonal term
+    # at its free endpoint (already in A): keep it out of the correction
+    fw = f._replace(mask=f.mask & (f.i != 0) & (f.j != 0)) if cfg.fix_first else f
+    touch0 = ((f.i == 0) | (f.j == 0))[:, None, None]
+
+    poses = poses0
+    lam = torch.tensor(cfg.lm_lambda_init, dtype=dtype, device=device)
+    chi2_state = torch.tensor(float("inf"), dtype=dtype, device=device)
+    Hd = torch.eye(6, dtype=dtype, device=device).expand(K, 6, 6)
+    it, done = 0, False
+    while it < cfg.max_iterations and not done:
+        Hdiag, Hoff, b, chi2 = build_block_normal_equations(poses, graph)
+        if cfg.fix_first:
+            Hdiag = Hdiag.clone()
+            Hdiag[0] = torch.eye(6, dtype=dtype, device=device)
+            Hoff = torch.where(touch0, torch.zeros_like(Hoff), Hoff)
+            b = b.clone()
+            b[0] = 0.0
+        A = _damped(Hdiag, lam)
+        C = _chain_upper_blocks(Hoff, f.i, f.j, K, dtype)
+        delta = solve_tridiag_woodbury(A, C, poses, fw, -b, cfg.loop_capacity)
+        if cfg.fix_first:
+            delta = delta.clone()
+            delta[0] = 0.0
+        poses_new = retract(poses, delta)
+        chi2_new = graph_chi2(poses_new, graph)
+        accept = chi2_new < chi2
+        poses = torch.where(accept, poses_new, poses)
+        lam = torch.where(accept, lam / cfg.lm_lambda_factor, lam * cfg.lm_lambda_factor)
+        rel = torch.abs(chi2 - chi2_new) / torch.clamp(chi2, min=1e-30)
+        chi2_state = torch.where(accept, chi2_new, chi2)
+        Hd = Hdiag
+        done = bool(accept & (rel < cfg.rel_tol))
+        it += 1
+    return SparseSolveResult(poses=poses, chi2=chi2_state, iterations=torch.tensor(it),
+                             lm_lambda=lam, H_diag=Hd)
+
+
+def optimize_graph_with_planes_sparse(*args, **kwargs):
+    """The joint pose + plane sparse solver (floor constraint)."""
+    raise NotImplementedError("optimize_graph_with_planes_sparse is ported with the floor "
+                              "constraint (ROADMAP A10)")

@@ -45,14 +45,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 # Launches of each kernel, counted by the wrappers where they launch it and
-# nowhere else (chip_smoke.py reads them to prove the main path ran them).
+# nowhere else (chip_smoke.py reads them to prove the main path ran them),
+# and of those the launches over a batch of more than one lane.
 launch_counts = {"nn1": 0, "nn1_select": 0}
+batched_launch_counts = {"nn1": 0, "nn1_select": 0}
 _lib = None
 
 
 def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, batched_launch_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -292,6 +295,7 @@ def _launch(name, query, ref, ref_mask, payload):
         if rc != 0:
             raise RuntimeError(f"gorio_{name} launch failed with cudaError_t {rc}")
         launch_counts[name] += 1
+        batched_launch_counts[name] += a.B > 1
     return (idx, d2) if sel is None else (idx, d2, sel)
 
 

@@ -2,15 +2,15 @@
 
 Port of `RadarGraphSLAM` from `gorio_tpu/pipeline/slam.py`
 (`RadarGraphSlamNodelet`): keyframe selection, LPM velocity preintegration
-between keyframes, the pose graph (odometry between-factors with
-fitness-based information, preintegration between-factors, GPS priors),
-and its dense LM solve. The graph is built on the host and solved on
-`device`, the card unless the caller asks for the CPU.
+between keyframes, Scan-Context loop closure verified by batched APDGICP,
+the pose graph (odometry between-factors with fitness-based information,
+preintegration between-factors, Huber loop factors, GPS priors) and its LM
+solve: dense up to `solve_dense_max_dim` stacked dimensions, block-sparse
+direct (tridiagonal + Woodbury) above. The graph is built on the host and
+solved on `device`, the card unless the caller asks for the CPU.
 
 Not ported yet, and refused with NotImplementedError rather than ignored:
-loop closure (ROADMAP A8), UGPM preintegration (A11), the floor constraint
-(A10), fixed-lag windows and graphs above 128 padded poses, which need the
-block-sparse solver (A7-sparse).
+UGPM preintegration (ROADMAP A11) and the floor constraint (A10).
 """
 
 from __future__ import annotations
@@ -24,7 +24,9 @@ import torch
 from ..core.pointcloud import PointCloud
 from ..graph.graph import PoseGraph
 from ..graph.solver import SolveConfig, optimize_graph
+from ..graph.sparse import optimize_graph_sparse
 from ..loopclosure.information import InformationConfig, calc_information_matrix
+from ..loopclosure.loop_detector import LoopConfig, LoopDetector
 from ..preintegration.lpm import lpm_preintegrate
 from .keyframes import KeyFrame, KeyframeUpdater
 
@@ -41,10 +43,10 @@ class SLAMConfig(NamedTuple):
     ugpm: Optional[dict] = None  # UGPMConfig fields, for the UGPM port (ROADMAP A11)
     gyr_var: float = 1e-4
     vel_var: float = 1e-3
-    enable_loop_closure: bool = True  # the port refuses True until ROADMAP A8
-    loop: Optional[dict] = None  # LoopConfig fields, for the loop-closure port (A8)
+    enable_loop_closure: bool = True
+    loop: LoopConfig = LoopConfig()
     info: InformationConfig = InformationConfig()
-    loop_robust_delta: float = 1.0
+    loop_robust_delta: float = 1.0  # Huber on loop edges (`:836-852`)
     gps_xy_info: float = 25.0
     gps_z_info: float = 4.0
     # GPS edge gate chain (`flush_gps_queue`, `radar_graph_slam_nodelet.cpp:
@@ -66,15 +68,12 @@ class SLAMConfig(NamedTuple):
     # (the JAX package's compile buckets; kept so the dense/sparse switch
     # falls at the same keyframe count)
     pad_poses_pow2: bool = True
+    # above this stacked dimension the solve is block-sparse (graph/sparse.py)
     solve_dense_max_dim: int = 768
 
 
 def check_supported(cfg: SLAMConfig):
     """Raise for the parts of the config that need an unported module."""
-    if cfg.enable_loop_closure:
-        raise NotImplementedError(
-            "loop closure is ported with ROADMAP A8; run with loops disabled (--no-loops)"
-        )
     if cfg.preint_mode != "lpm":
         raise NotImplementedError(f"preint_mode={cfg.preint_mode!r} is ported with ROADMAP A11")
     if cfg.enable_floor_constraint:
@@ -90,17 +89,22 @@ class GPSMeasurement(NamedTuple):
 
 @dataclass
 class RadarGraphSLAM:
-    cfg: SLAMConfig = SLAMConfig(enable_loop_closure=False)
+    cfg: SLAMConfig = SLAMConfig()
     device: torch.device = torch.device("cuda")
     keyframes: list = field(default_factory=list)
     updater: KeyframeUpdater = None
+    loop_detector: LoopDetector = None
     gyr_t: list = field(default_factory=list)
     gyr: list = field(default_factory=list)
     vel_t: list = field(default_factory=list)
     vel: list = field(default_factory=list)
     gps_queue: list = field(default_factory=list)
+    loops: list = field(default_factory=list)
     trans_odom2map: np.ndarray = field(default_factory=lambda: np.eye(4))
+    # graph solves by solver, counted where `optimize` picks one
+    solver_counts: dict = field(default_factory=lambda: {"dense": 0, "sparse": 0})
     _last_gps_edge_index: int = -(10**9)
+    _loop_checked_upto: int = 0
 
     def __post_init__(self):
         check_supported(self.cfg)
@@ -114,6 +118,9 @@ class RadarGraphSLAM:
                 delta_angle=self.cfg.keyframe_delta_angle,
                 delta_time=np.inf,
             )
+        if self.loop_detector is None:
+            self.loop_detector = LoopDetector(cfg=self.cfg.loop, info_cfg=self.cfg.info,
+                                              device=self.device)
 
     # ---- measurement ingestion ------------------------------------------
     def push_imu(self, t: float, gyro):
@@ -154,6 +161,8 @@ class RadarGraphSLAM:
             if meas is not None:
                 kf.trans_integrated, kf.preint_cov = meas
         self.keyframes.append(kf)
+        if self.cfg.enable_loop_closure:
+            self.loop_detector.add_keyframe(cloud)
         return True
 
     def _preintegrate(self, t0: float, t1: float):
@@ -248,24 +257,32 @@ class RadarGraphSLAM:
 
     # ---- optimization cycle (`optimization_timer_callback`, `:750-834`) --
     def optimize(self, window: Optional[int] = None) -> Optional[np.ndarray]:
-        """One graph-optimization cycle over every keyframe (dense LM)."""
-        if window:
-            raise NotImplementedError(
-                "fixed-lag windows are ported with the block-sparse solver (ROADMAP A7-sparse)"
-            )
+        """One graph-optimization cycle.
+
+        `window=W` runs fixed-lag optimization: only the last W keyframes are
+        variables, the window's first pose is anchored at its current
+        estimate, and a loop closure whose old keyframe lies before the
+        window enters as a prior on its new keyframe through the frozen old
+        pose. The keyframe list is snapshot once up front."""
         keyframes = list(self.keyframes)
-        if len(keyframes) < 2:
+        K = len(keyframes)
+        if K < 2:
             return None
+        base = 0 if (window is None or K <= window) else K - window
+        kfs = keyframes[base:]
 
         def est(kf):
             return kf.optimized_pose if kf.optimized_pose is not None else kf.odom_scan2scan
 
         g = PoseGraph()
-        for kf in keyframes:
+        for kf in kfs:
             g.add_pose(est(kf))
-        g.add_prior(0, keyframes[0].odom_scan2scan, info=np.eye(6) * self.cfg.anchor_info)
-        for k in range(1, len(keyframes)):
-            prev, curr = keyframes[k - 1], keyframes[k]
+        # anchor: keyframe 0's odometry for the full graph; the window-edge
+        # pose's current estimate in fixed-lag mode
+        anchor = keyframes[0].odom_scan2scan if base == 0 else est(kfs[0])
+        g.add_prior(0, anchor, info=np.eye(6) * self.cfg.anchor_info)
+        for k in range(1, len(kfs)):
+            prev, curr = kfs[k - 1], kfs[k]
             rel = np.linalg.inv(prev.odom_scan2scan) @ curr.odom_scan2scan
             if curr.edge_info is None:
                 info, _ = calc_information_matrix(
@@ -278,8 +295,38 @@ class RadarGraphSLAM:
                 var = np.clip(np.diag(curr.preint_cov), 1e-6, None)
                 g.add_between(k - 1, k, curr.trans_integrated, info=np.diag(1.0 / var))
 
+        # loop detection over every keyframe added since the last cycle, in
+        # chunks of max_keyframes_per_update (the reference's keyframe-queue
+        # batching, `:552`; here it bounds the verification batch)
+        if self.cfg.enable_loop_closure and K > 3:
+            poses_arr = np.stack([est(kf) for kf in keyframes])
+            odom_arr = np.stack([kf.odom_scan2scan for kf in keyframes])
+            accum_arr = np.asarray([kf.accum_distance for kf in keyframes])
+            clouds = [kf.cloud for kf in keyframes]
+            alts = [kf.altitude for kf in keyframes]
+            new_idx = [kf.index for kf in keyframes[self._loop_checked_upto:]]
+            chunk = max(self.cfg.max_keyframes_per_update, 1)
+            for c in range(0, len(new_idx), chunk):
+                self.loops.extend(self.loop_detector.detect_batch(
+                    new_idx[c: c + chunk], clouds, poses_arr, odom_arr, accum_arr,
+                    keyframe_altitudes=alts,
+                ))
+            self._loop_checked_upto = K
+        for loop in self.loops:
+            # edge old->new measuring old_T_new = T_rel (`addLoopFactor`)
+            i, j = loop.key_old - base, loop.key_new - base
+            if j < 0:
+                continue  # fully outside the window: already absorbed
+            if i >= 0:
+                g.add_between(i, j, loop.T_rel, info=loop.information,
+                              robust_delta=self.cfg.loop_robust_delta)
+            else:
+                # old endpoint frozen: T_new ~ T_old_frozen @ T_rel as a prior
+                g.add_prior(j, est(keyframes[loop.key_old]) @ loop.T_rel,
+                            info=loop.information, robust_delta=self.cfg.loop_robust_delta)
+
         self._flush_gps_queue(est, keyframes)
-        for k, kf in enumerate(keyframes):
+        for k, kf in enumerate(kfs):
             if kf.utm_coord is None or not getattr(kf, "_gps_edge", False):
                 continue
             axes = (1, 1, 1) if kf._gps_has_z else (1, 1, 0)
@@ -293,14 +340,23 @@ class RadarGraphSLAM:
             K_pad = max(4, 1 << (K_real - 1).bit_length())
             for _ in range(K_pad - K_real):
                 g.add_prior(g.add_pose(np.eye(4)), np.eye(4), info=1.0)
-        if len(g.poses) * 6 > self.cfg.solve_dense_max_dim:
-            raise NotImplementedError(
-                f"{len(g.poses)} padded poses need the block-sparse solver (ROADMAP A7-sparse)"
-            )
         poses0, graph = g.freeze(device=self.device)
-        res = optimize_graph(poses0, graph, self.cfg.solve)
-        opt = res.poses.cpu().numpy()[: len(keyframes)]  # drop the padding dummies
-        for k, kf in enumerate(keyframes):
+        solve_cfg = self.cfg.solve
+        # above the dense cutoff, the block-sparse direct solver: exact
+        # tridiagonal + Woodbury, its low-rank capacity sized from the live
+        # loop count in power-of-two buckets (the JAX package's rule)
+        if len(g.poses) * 6 > self.cfg.solve_dense_max_dim and solve_cfg.solver in (
+                "dense", "direct"):
+            n_loop = max(len(self.loops), 1)
+            lcap = max(8, 1 << (n_loop - 1).bit_length())
+            res = optimize_graph_sparse(
+                poses0, graph, solve_cfg._replace(solver="direct", loop_capacity=lcap))
+            self.solver_counts["sparse"] += 1
+        else:
+            res = optimize_graph(poses0, graph, solve_cfg)
+            self.solver_counts["dense"] += 1
+        opt = res.poses.cpu().numpy()[: len(kfs)]  # drop the padding dummies
+        for k, kf in enumerate(kfs):
             kf.optimized_pose = opt[k]
         last = keyframes[-1]
         self.trans_odom2map = last.optimized_pose @ np.linalg.inv(last.odom_scan2scan)

@@ -5,6 +5,11 @@ per-iteration 1-NN correspondences (the `nn1_select` kernel), the APD polar
 measurement covariance, and the Mahalanobis residual + H/b reduction in
 closed component form, feeding the LM loop in `lsq.py`.
 
+Every function takes an optional leading batch axis, the counterpart of
+`jax.vmap` over pairs (loop-closure verification): clouds (B, N, .), poses
+(B, 4, 4). A batched linearize is one `nn1_select` launch at B lanes and a
+batched fitness one `nn1_best` launch.
+
 Precision follows the JAX package under x64: clouds stay in their own dtype
 (float32 from the sensor), the pose decides the dtype of the linearization
 (float64 host poses), and the 1-NN kernel computes in float32.
@@ -22,7 +27,7 @@ from ..core.linalg import inv3, sym_eigh3
 from ..core.pointcloud import PointCloud
 from ..ops.nn import nn1_best, nn1_select
 from .knn import knn
-from .lsq import LMConfig, LMResult, lm_optimize
+from .lsq import LMConfig, LMResult, lm_optimize, lm_optimize_batch
 
 
 class GICPConfig(NamedTuple):
@@ -47,17 +52,28 @@ class GICPConfig(NamedTuple):
 def knn_covariances(xyz, mask, k: int = 20, plane_eps: float = 1e-3, block: int = 512):
     """Per-point neighbourhood covariances with PLANE regularization
     (`fast_apdgicp_impl.hpp:351-411`): kNN -> covariance -> spectrum clamped
-    to (eps, 1, 1) in the eigenbasis. Returns (cov (N, 3, 3), geo_w (N,))."""
+    to (eps, 1, 1) in the eigenbasis. xyz ([B,] N, 3) -> (cov ([B,] N, 3, 3),
+    geo_w ([B,] N)). The kNN is blocked over queries: a block holds
+    (B, block, N) distances, never (B, N, N)."""
     idx, _ = knn(xyz, xyz, k, ref_mask=mask, block=block)
-    neigh = xyz[idx]  # (N, k, 3)
-    centered = neigh - torch.mean(neigh, dim=1, keepdim=True)
-    cov = torch.einsum("nki,nkj->nij", centered, centered) / k
+    neigh = _take(xyz, idx, batched=xyz.dim() == 3)  # ([B,] N, k, 3)
+    centered = neigh - torch.mean(neigh, dim=-2, keepdim=True)
+    cov = torch.einsum("...nki,...nkj->...nij", centered, centered) / k
     lam, V = sym_eigh3(cov)  # ascending
     values = torch.tensor([plane_eps, 1.0, 1.0], dtype=xyz.dtype, device=xyz.device)
-    reg = torch.einsum("nij,j,nkj->nik", V, values, V)
+    reg = torch.einsum("...ij,j,...kj->...ik", V, values, V)
     # geo weight: normalized smallest eigenvalue of the raw covariance
-    geo_w = torch.clamp(lam[:, 0], min=0.0) / torch.clamp(lam[:, 2], min=1e-30)
+    geo_w = torch.clamp(lam[..., 0], min=0.0) / torch.clamp(lam[..., 2], min=1e-30)
     return reg, geo_w
+
+
+def _take(x, idx, batched: bool):
+    """x[idx] along the point axis, per lane when `batched`: x ([B,] M, ...)
+    and idx ([B,] ...) -> ([B,] ..., x's trailing dims)."""
+    if not batched:
+        return x[idx]
+    lane = torch.arange(x.shape[0], device=x.device).view(-1, *([1] * (idx.dim() - 1)))
+    return x[lane, idx]
 
 
 def apd_polar_cov(pts, dist_var, azimuth_var_deg, elevation_var_deg):
@@ -97,8 +113,8 @@ class GICPProblem(NamedTuple):
 
     src_xyz: torch.Tensor
     src_mask: torch.Tensor
-    src_cov: torch.Tensor  # (N, 3, 3)
-    src_geo_w: torch.Tensor  # (N,)
+    src_cov: torch.Tensor  # ([B,] N, 3, 3)
+    src_geo_w: torch.Tensor  # ([B,] N)
     src_cluster: torch.Tensor
     tgt_xyz: torch.Tensor
     tgt_mask: torch.Tensor
@@ -108,10 +124,10 @@ class GICPProblem(NamedTuple):
 
 def _covariances(cloud: PointCloud, cfg: GICPConfig):
     """Neighbourhood covariances per the config: identity for "icp"."""
-    n = cloud.xyz.shape[0]
+    lead = cloud.xyz.shape[:-1]
     if cfg.mode == "icp":
-        eye = torch.eye(3, dtype=cloud.xyz.dtype, device=cloud.xyz.device).expand(n, 3, 3)
-        return eye, torch.zeros((n,), dtype=cloud.xyz.dtype, device=cloud.xyz.device)
+        eye = torch.eye(3, dtype=cloud.xyz.dtype, device=cloud.xyz.device).expand(*lead, 3, 3)
+        return eye, torch.zeros(lead, dtype=cloud.xyz.dtype, device=cloud.xyz.device)
     if cfg.covariance_method != "knn":
         raise NotImplementedError(
             f"covariance_method={cfg.covariance_method!r} is ported with VGICP (ROADMAP A12)"
@@ -131,15 +147,15 @@ def prepare_gicp(source: PointCloud, target: PointCloud, cfg: GICPConfig) -> GIC
 
 def _transform(xyz, T):
     """Points under T, in the promoted dtype of the pose and the cloud.
-    Returns (moved, T in that dtype)."""
+    xyz ([B,] N, 3), T ([B,] 4, 4). Returns (moved, T in that dtype)."""
     dtype = torch.promote_types(T.dtype, xyz.dtype)
     T = T.to(dtype)
-    return xyz.to(dtype) @ T[:3, :3].T + T[:3, 3], T
+    return xyz.to(dtype) @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3], T
 
 
 def _correspondences(prob: GICPProblem, T, cfg: GICPConfig):
     """1-NN (`nn1_best`) + Mahalanobis; `update_correspondences`
-    (`fast_apdgicp_impl.hpp:160-220`)."""
+    (`fast_apdgicp_impl.hpp:160-220`). One pair (no batch axis)."""
     moved, T = _transform(prob.src_xyz, T)
     R = T[:3, :3]
     idx, sqd = nn1_best(moved, prob.tgt_xyz, ref_mask=prob.tgt_mask)
@@ -162,17 +178,17 @@ def _weights(prob: GICPProblem, cfg: GICPConfig, matched_cluster):
     if cfg.mode != "apdgicp":
         return torch.ones_like(prob.src_geo_w)
     same = (matched_cluster == prob.src_cluster) & (prob.src_cluster >= 0.0)
-    n = prob.src_xyz.shape[0]
+    n = prob.src_xyz.shape[-2]
     cl_w = torch.where(same, 1.0 / n, 0.0).to(prob.src_geo_w.dtype)
     return 1.0 + prob.src_geo_w + cl_w
 
 
 def _error_terms(prob: GICPProblem, T, idx, ok, mah, w):
     moved, _ = _transform(prob.src_xyz, T)
-    err = prob.tgt_xyz[idx].to(moved.dtype) - moved  # (N, 3)
-    m_err = torch.einsum("nij,nj->ni", mah, err)
-    per_point = w * torch.einsum("ni,ni->n", err, m_err)
-    cost = torch.sum(torch.where(ok, per_point, torch.zeros_like(per_point)))
+    err = _take(prob.tgt_xyz, idx, T.dim() == 3).to(moved.dtype) - moved  # ([B,] N, 3)
+    m_err = torch.einsum("...nij,...nj->...ni", mah, err)
+    per_point = w * torch.einsum("...ni,...ni->...n", err, m_err)
+    cost = torch.sum(torch.where(ok, per_point, torch.zeros_like(per_point)), dim=-1)
     return moved, err, m_err, cost
 
 
@@ -224,59 +240,65 @@ def _mah33(c):
 
 
 def make_gicp_callbacks(prob: GICPProblem, cfg: GICPConfig):
-    """Build (linearize, compute_error) for `lm_optimize`
+    """Build (linearize, compute_error) for `lm_optimize` (one pair) or
+    `lm_optimize_batch` (a problem with a batch axis, T (B, 4, 4))
     (`FastAPDGICP::linearize` / `compute_error`, `fast_apdgicp_impl.hpp:224-346`;
     the reference weights the cost with (1+geo+cl) but not H/b).
 
     The linearize epilogue (APD covariance, (C_B + R C_A R^T)^-1, per-point
-    H/b) is written in closed component form on (N,) columns and reduced by
-    one (28, N) x (N,) product. The target's xyz, covariance, cluster and
-    mask ride in the 1-NN kernel's payload, so the kernel returns them for
-    the winning target point."""
+    H/b) is written in closed component form on ([B,] N) columns, with the
+    rotation's entries as per-lane scalars broadcast over the points, and
+    reduced by one (28, N) x (N,) product per lane. The target's xyz,
+    covariance, cluster and mask ride in the 1-NN kernel's payload, so the
+    kernel returns them for the winning target point: one `nn1_select`
+    launch per linearize, at every lane of the batch."""
     tcov6 = _sym6(prob.tgt_cov)
     scov6 = _sym6(prob.src_cov)
     gate2 = cfg.max_correspondence_distance ** 2
     dtype = prob.tgt_xyz.dtype
     payload = torch.cat(
-        [prob.tgt_xyz] + [c[:, None].to(dtype) for c in tcov6]
-        + [prob.tgt_cluster.to(dtype)[:, None], prob.tgt_mask.to(dtype)[:, None]],
-        dim=1,
+        [prob.tgt_xyz] + [c[..., None].to(dtype) for c in tcov6]
+        + [prob.tgt_cluster.to(dtype)[..., None], prob.tgt_mask.to(dtype)[..., None]],
+        dim=-1,
     )
 
     def linearize(T):
         moved, T = _transform(prob.src_xyz, T)
-        R = T[:3, :3]
+
+        def R(i, j):  # a rotation entry per lane, broadcast over the points
+            return T[..., i, j, None]
+
         idx, sqd, sel = nn1_select(moved, prob.tgt_xyz, payload, ref_mask=prob.tgt_mask)
-        ok = prob.src_mask & (sqd < gate2) & (sel[:, 10] > 0.5)
+        ok = prob.src_mask & (sqd < gate2) & (sel[..., 10] > 0.5)
         okf = ok.to(moved.dtype)
 
         A6 = list(scov6)
-        B6 = [sel[:, 3 + k] for k in range(6)]
+        B6 = [sel[..., 3 + k] for k in range(6)]
         if cfg.mode == "apdgicp":
             cd = _apd_cov6(moved, cfg.dist_var, cfg.azimuth_var_deg, cfg.elevation_var_deg)
             A6 = [A6[k] + cd[k] for k in range(6)]
             B6 = [B6[k] + cd[k] for k in range(6)]
-        w = _weights(prob, cfg, sel[:, 9])
+        w = _weights(prob, cfg, sel[..., 9])
 
         # RCR = B + R A R^T, unrolled over the symmetric components
         Af = [[A6[0], A6[3], A6[4]], [A6[3], A6[1], A6[5]], [A6[4], A6[5], A6[2]]]
         Bf = [[B6[0], B6[3], B6[4]], [B6[3], B6[1], B6[5]], [B6[4], B6[5], B6[2]]]
-        RA = [[sum(R[i, j] * Af[j][k] for j in range(3)) for k in range(3)] for i in range(3)]
+        RA = [[sum(R(i, j) * Af[j][k] for j in range(3)) for k in range(3)] for i in range(3)]
 
         def rcr(i, l):
-            return Bf[i][l] + sum(RA[i][k] * R[l, k] for k in range(3))
+            return Bf[i][l] + sum(RA[i][k] * R(l, k) for k in range(3))
 
         m = _sym_inv6((rcr(0, 0), rcr(1, 1), rcr(2, 2), rcr(0, 1), rcr(0, 2), rcr(1, 2)))
         m_xx, m_yy, m_zz, m_xy, m_xz, m_yz = m
         M0, M1, M2 = (m_xx, m_xy, m_xz), (m_xy, m_yy, m_yz), (m_xz, m_yz, m_zz)
 
-        ex = sel[:, 0] - moved[:, 0]
-        ey = sel[:, 1] - moved[:, 1]
-        ez = sel[:, 2] - moved[:, 2]
+        ex = sel[..., 0] - moved[..., 0]
+        ey = sel[..., 1] - moved[..., 1]
+        ez = sel[..., 2] - moved[..., 2]
         me = tuple(Mi[0] * ex + Mi[1] * ey + Mi[2] * ez for Mi in (M0, M1, M2))
         cost_col = w * (ex * me[0] + ey * me[1] + ez * me[2])
 
-        px, py, pz = moved[:, 0], moved[:, 1], moved[:, 2]
+        px, py, pz = moved[..., 0], moved[..., 1], moved[..., 2]
         # G[i] = column i of skew(p), dotted with M's columns (M symmetric)
         G = [tuple(pz * M1[k] - py * M2[k] for k in range(3)),
              tuple(px * M2[k] - pz * M0[k] for k in range(3)),
@@ -296,20 +318,23 @@ def make_gicp_callbacks(prob: GICPProblem, cfg: GICPConfig):
             + [G[i][k] for i in range(3) for k in range(3)]  # -H_rt
             + [m_xx, m_yy, m_zz, m_xy, m_xz, m_yz]  # H_tt
             + br + [me[0], me[1], me[2], cost_col],
-            dim=0,
+            dim=-2,
         ).to(moved.dtype)
-        s = cols @ okf  # every accumulator in one reduction
-        Hrr_m = torch.stack([torch.stack([s[0], s[3], s[4]]),
-                             torch.stack([s[3], s[1], s[5]]),
-                             torch.stack([s[4], s[5], s[2]])])
-        Hrt_m = -s[6:15].reshape(3, 3)
-        Htt_m = torch.stack([torch.stack([s[15], s[18], s[19]]),
-                             torch.stack([s[18], s[16], s[20]]),
-                             torch.stack([s[19], s[20], s[17]])])
-        H = torch.cat([torch.cat([Hrr_m, Hrt_m], 1), torch.cat([Hrt_m.T, Htt_m], 1)], 0)
-        b = torch.cat([s[21:24], -s[24:27]])
+        s = (cols @ okf[..., None])[..., 0]  # every accumulator in one reduction
+
+        def sym3(a, b, c, d, e, f):  # components xx yy zz xy xz yz -> (.., 3, 3)
+            return torch.stack([torch.stack([s[..., a], s[..., d], s[..., e]], -1),
+                                torch.stack([s[..., d], s[..., b], s[..., f]], -1),
+                                torch.stack([s[..., e], s[..., f], s[..., c]], -1)], -2)
+
+        Hrr_m = sym3(0, 1, 2, 3, 4, 5)
+        Hrt_m = -s[..., 6:15].reshape(*s.shape[:-1], 3, 3)
+        Htt_m = sym3(15, 16, 17, 18, 19, 20)
+        H = torch.cat([torch.cat([Hrr_m, Hrt_m], -1),
+                       torch.cat([Hrt_m.transpose(-1, -2), Htt_m], -1)], -2)
+        b = torch.cat([s[..., 21:24], -s[..., 24:27]], -1)
         aux = (idx.long(), ok, _mah33(m), w)
-        return s[27], H, b, aux
+        return s[..., 27], H, b, aux
 
     def compute_error(T, aux):
         idx, ok, mah, w = aux
@@ -360,12 +385,38 @@ def gicp_align(
     return lm_optimize(linearize, compute_error, init_T, cfg.lm)
 
 
+def align_prepared_batch(prob: GICPProblem, init_T, cfg: GICPConfig = GICPConfig()) -> LMResult:
+    """Batched LM alignment of a prepared problem with a batch axis
+    (`prepare_gicp` on stacked clouds), from init_T (B, 4, 4). The
+    covariances depend only on the clouds and on `cfg`'s k, plane_eps and
+    mode, so one problem serves aligns that differ in their correspondence
+    gate (loop verification's coarse and fine stages)."""
+    linearize, compute_error = make_gicp_callbacks(prob, cfg)
+    return lm_optimize_batch(linearize, compute_error, init_T, cfg.lm)
+
+
+def gicp_align_batch(
+    source: PointCloud,
+    target: PointCloud,
+    init_T,
+    cfg: GICPConfig = GICPConfig(),
+) -> LMResult:
+    """`gicp_align` over B independent pairs at once (the counterpart of
+    `jax.vmap(gicp_align)`): clouds stacked to (B, N, .), init_T (B, 4, 4).
+    Each lane returns what `gicp_align` returns for its pair; each outer LM
+    iteration of the batch is one `nn1_select` launch at B lanes."""
+    if cfg.mode not in ("apdgicp", "gicp", "icp"):
+        raise ValueError(f"unknown GICP mode {cfg.mode!r}")
+    return align_prepared_batch(prepare_gicp(source, target, cfg), init_T, cfg)
+
+
 def fitness_score(source: PointCloud, target: PointCloud, T, max_range: float = 1.0):
     """Mean squared NN distance of inliers (`pcl::Registration::
     getFitnessScore`, `information_matrix_calculator.cpp:55-86`), over the
-    `nn1_best` kernel. Returns (fitness, inlier count)."""
+    `nn1_best` kernel: one launch, batched or not. Returns (fitness,
+    inlier count), per lane for clouds (B, N, .) and T (B, 4, 4)."""
     moved, _ = _transform(source.xyz, T)
     _, sqd = nn1_best(moved, target.xyz, ref_mask=target.mask)
     ok = source.mask & (sqd < max_range * max_range)
-    n = torch.clamp(torch.sum(ok), min=1)
-    return torch.sum(torch.where(ok, sqd, torch.zeros_like(sqd))) / n, n
+    n = torch.clamp(torch.sum(ok, dim=-1), min=1)
+    return torch.sum(torch.where(ok, sqd, torch.zeros_like(sqd)), dim=-1) / n, n

@@ -275,6 +275,29 @@ def test_launch_is_one_call_on_the_callers_tensors(monkeypatch):
     assert tnn.launch_counts["nn1"] == 1
 
 
+def test_batched_launches_are_counted(monkeypatch):
+    """A launch over B > 1 lanes (loop verification) counts in both
+    `launch_counts` and `batched_launch_counts`; B = 1 only in the first;
+    `reset_launch_counts` zeroes both."""
+    class FakeLib:
+        def gorio_nn1_select(self, *args):
+            return 0
+
+    monkeypatch.setattr(tnn, "_check_cuda", lambda *t: None)
+    monkeypatch.setattr(tnn, "load_library", FakeLib)
+    monkeypatch.setattr(tnn, "_stream", lambda device: 0)
+    monkeypatch.setattr(tnn, "launch_counts", {"nn1": 0, "nn1_select": 0})
+    monkeypatch.setattr(tnn, "batched_launch_counts", {"nn1": 0, "nn1_select": 0})
+    q, r, mask, pay = _main_path_tensors(n=64, m=64)
+    tnn._launch("nn1_select", q, r, mask, pay)
+    qb, rb, mb, pb = (torch.stack([t, t]) for t in (q, r, mask, pay))
+    idx, d2, sel = tnn._launch("nn1_select", qb, rb, mb, pb)
+    assert idx.shape == (2, 64) and sel.shape == (2, 64, tnn.PAYLOAD)
+    assert tnn.launch_counts["nn1_select"] == 2 and tnn.batched_launch_counts["nn1_select"] == 1
+    tnn.reset_launch_counts()
+    assert tnn.launch_counts == tnn.batched_launch_counts == {"nn1": 0, "nn1_select": 0}
+
+
 def test_main_path_tensors_fit_the_kernel(monkeypatch):
     """One APDGICP align, its inlier fraction and fitness score on float32
     clouds with a float64 pose, as the slam CLI runs them: every 1-NN call

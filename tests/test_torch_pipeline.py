@@ -114,7 +114,8 @@ def test_slam_backend_matches_jax(frames):
 
 
 def test_unported_slam_modes_raise():
-    for kw, item in ((dict(), "A8"), (dict(enable_loop_closure=False, preint_mode="ugpm"), "A11"),
+    for kw, item in ((dict(preint_mode="ugpm"), "A11"),
+                     (dict(enable_loop_closure=False, preint_mode="ugpm"), "A11"),
                      (dict(enable_loop_closure=False, enable_floor_constraint=True), "A10")):
         with pytest.raises(NotImplementedError, match=item):
             ts.RadarGraphSLAM(ts.SLAMConfig(**kw))

@@ -1,6 +1,11 @@
-"""The slice as a whole: `python -m gorio_tpu_torch.cli simulate / slam
---no-loops / evaluate` against `python -m gorio_tpu.cli` on one small
-sequence (4 s at 4 Hz, capacity 512, 3000 landmarks), on the CPU.
+"""The slice as a whole: `python -m gorio_tpu_torch.cli simulate / slam /
+evaluate` against `python -m gorio_tpu.cli` on the CPU, on two small
+sequences (capacity 512, 3000 landmarks): 4 s at 4 Hz with loops off, and
+a 20 s circuit at 2.5 Hz, 1.6 laps, with loop closure on, optimized every
+10 keyframes over a 30-keyframe window and the dense solver capped at 96
+stacked dimensions, so that it revisits its start, accepts a loop and runs
+the block-sparse solver on both of its paths (block-Thomas at 32 padded
+poses, SPIKE at 64).
 
 End-to-end tolerance: the port draws its RANSAC hypotheses from a torch
 generator, not `jax.random`, so the ego-velocity motion guesses differ by
@@ -9,6 +14,7 @@ convergence box (`lsq.py` epsilons). Keyframe poses must agree within
 5 mm / 5 mrad, and the ATEs within 20% + 1 mm."""
 
 import ast
+import functools
 import json
 import os
 import subprocess
@@ -24,6 +30,13 @@ from gorio_tpu_torch.cli import main as torch_cli
 
 ROOT = Path(__file__).resolve().parents[1]
 SIM = ["--duration", "4", "--rate", "4", "--capacity", "512", "--landmarks", "3000"]
+CIRCUIT = ["--circuit", "--duration", "20", "--rate", "2.5", "--laps", "1.6", "--seed", "5",
+           "--capacity", "512", "--landmarks", "3000"]
+# the loop gates of tests/test_loop_e2e.py: a 20 m accumulated distance
+# instead of 50 m lets a 32 m lap close
+LOOP = dict(accum_distance_thresh=20.0, min_loop_interval_dist=10.0,
+            odom_check_trans_thresh=1.0, odom_check_rot_thresh=0.3)
+LOOP_SLAM = ["--capacity", "512", "--optimize-every", "10", "--optimize-window", "30"]
 
 
 @pytest.fixture(scope="module")
@@ -39,6 +52,32 @@ def runs(tmp_path_factory):
                               str(d / "torch.tum"), "--no-loops", "--capacity", "512",
                               "--device", "cpu", "--timing-out", str(d / "timing.json")])
     return d, slam, odo
+
+
+@pytest.fixture(scope="module")
+def loop_runs(tmp_path_factory):
+    """Both CLIs with loop closure on the circuit, their `SLAMConfig` given
+    the loop gates above and `solve_dense_max_dim=96`."""
+    import gorio_tpu.pipeline.slam as jslam
+    import gorio_tpu_torch.pipeline.slam as tslam
+    from gorio_tpu.loopclosure.loop_detector import LoopConfig as JLoop
+    from gorio_tpu_torch.loopclosure.loop_detector import LoopConfig as TLoop
+
+    d = tmp_path_factory.mktemp("loops")
+    seq = str(d / "seq")
+    torch_cli(["simulate", "--output", seq, *CIRCUIT])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("GORIO_NO_COMPILE_CACHE", "1")
+        mp.setattr(jslam, "SLAMConfig", functools.partial(
+            jslam.SLAMConfig, loop=JLoop(**LOOP), solve_dense_max_dim=96))
+        mp.setattr(tslam, "SLAMConfig", functools.partial(
+            tslam.SLAMConfig, loop=TLoop(**LOOP), solve_dense_max_dim=96))
+        jax_cli(["slam", "--dataset", seq, "--output", str(d / "jax.tum"), *LOOP_SLAM,
+                 "--timing-out", str(d / "jax.json")])
+        slam, _, _ = torch_cli(["slam", "--dataset", seq, "--output", str(d / "torch.tum"),
+                                *LOOP_SLAM, "--device", "cpu", "--timing-out",
+                                str(d / "torch.json")])
+    return d, slam
 
 
 def test_simulate_writes_the_same_sequence(runs):
@@ -76,14 +115,43 @@ def test_slam_matches_jax(runs):
     assert timing["lm_iterations"] == sum(st.iterations for st in odo.statuses) > 0
 
 
+def test_loops_match_jax(loop_runs):
+    """The same keyframes, the same accepted loops and gate counts, the
+    same trajectory within 5 mm / 5 mrad, the ATE within 20% + 1 mm; the
+    sparse solver ran and verification launched `nn1_select` per outer LM
+    iteration of each batch."""
+    d, slam = loop_runs
+    jt = json.loads((d / "jax.json").read_text())
+    tt = json.loads((d / "torch.json").read_text())
+    assert jt["n_loops"] >= 1, "the JAX CLI accepts no loop on this sequence"
+    assert tt["keyframe_stamps"] == jt["keyframe_stamps"]
+    assert [l[:2] for l in tt["loops"]] == [l[:2] for l in jt["loops"]]
+    np.testing.assert_allclose([l[2] for l in tt["loops"]], [l[2] for l in jt["loops"]],
+                               atol=1e-4)
+    assert tt["loop_gate_counts"] == jt["loop_gate_counts"]
+    assert tt["solver_counts"]["sparse"] >= 2 and tt["solver_counts"]["dense"] >= 1
+    assert tt["verify_lm_iterations"] == slam.loop_detector.verify_iterations > 0
+    _, jp = load_tum(d / "jax.tum")
+    _, tp = load_tum(d / "torch.tum")
+    dpos = np.linalg.norm(tp[:, :3, 3] - jp[:, :3, 3], axis=1)
+    dR = np.einsum("nji,njk->nik", jp[:, :3, :3], tp[:, :3, :3])
+    dang = np.arccos(np.clip((np.trace(dR, axis1=1, axis2=2) - 1) / 2, -1, 1))
+    assert dpos.max() < 5e-3 and dang.max() < 5e-3, (dpos.max(), dang.max())
+    gt = str(d / "seq" / "groundtruth.tum")
+    ej = torch_cli(["evaluate", str(d / "jax.tum"), gt])["ate_rmse_m"]
+    et = torch_cli(["evaluate", str(d / "torch.tum"), gt])["ate_rmse_m"]
+    assert abs(et - ej) <= 0.2 * ej + 1e-3, (et, ej)
+
+
 @pytest.mark.parametrize("flags,item", [
-    ([], "A8"),
-    (["--no-loops", "--fused"], "A10"),
-    (["--no-loops", "--floor"], "A10"),
-    (["--no-loops", "--preint", "ugpm"], "A11"),
-    (["--no-loops", "--registration", "ndt"], "A12"),
-    (["--no-loops", "--optimize-window", "5"], "A7-sparse"),
-    (["--no-loops", "--map", "m.npz"], "A13"),
+    (["--preprocess"], "A10"),
+    (["--fused"], "A10"),
+    (["--floor"], "A10"),
+    (["--preint", "ugpm"], "A11"),
+    (["--registration", "ndt"], "A12"),
+    (["--dump", "g.g2o"], "A13"),
+    (["--map", "m.npz"], "A13"),
+    (["--config", "c.yaml"], "A13"),
 ])
 def test_unported_flags_raise(runs, flags, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -101,8 +169,9 @@ def test_cuda_device_without_a_card_raises(runs):
 
 def test_port_runs_without_jax(runs, tmp_path):
     """A process in which `import jax`, `import jaxlib` and `import
-    gorio_tpu` (and every submodule) fail runs the port's whole slice:
-    simulate, slam, evaluate — with the same result as in this process.
+    gorio_tpu` (and every submodule) fail runs the port's whole slice, loop
+    closure on: simulate, slam, evaluate — with the same result as this
+    process with loops off (the 4 s sequence never passes the 50 m gate).
     (An import hook blocks them: a `sys.modules['jax'] = None` entry trips
     scipy's array-API helper, which looks the module up by name.)"""
     d = runs[0]
@@ -116,7 +185,7 @@ def test_port_runs_without_jax(runs, tmp_path):
         "from gorio_tpu_torch.cli import main\n"
         f"main(['simulate', '--output', 'seq', *{SIM!r}])\n"
         f"main(['slam', '--dataset', 'seq', '--output', {str(tmp_path / 'e.tum')!r},"
-        " '--no-loops', '--capacity', '512', '--device', 'cpu'])\n"
+        " '--capacity', '512', '--device', 'cpu'])\n"
         f"r = main(['evaluate', {str(tmp_path / 'e.tum')!r}, 'seq/groundtruth.tum'])\n"
         "assert r['ate_rmse_m'] < 0.05\n"
         "assert not [m for m, v in sys.modules.items() if v is not None\n"
@@ -154,18 +223,28 @@ def test_port_imports_nothing_of_the_jax_package(path):
 
 def test_configs_carry_over_from_jax():
     """`convert.config_from_dict` maps the JAX CLI's configs (nested ones
-    included) onto the port's; configs of unported modules stay dicts."""
+    included: loop closure, Scan Context, the solver) onto the port's;
+    configs of unported modules stay dicts."""
+    from gorio_tpu.loopclosure.loop_detector import LoopConfig as JLoop
+    from gorio_tpu.loopclosure.scancontext import ScanContextConfig as JSC
+    from gorio_tpu_torch.graph.solver import SolveConfig
+    from gorio_tpu_torch.loopclosure.loop_detector import LoopConfig
+    from gorio_tpu_torch.loopclosure.scancontext import ScanContextConfig
     from gorio_tpu.pipeline.odometry import OdometryConfig as JOdo
     from gorio_tpu.pipeline.slam import SLAMConfig as JSlam
     from gorio_tpu_torch.convert import config_from_dict
     from gorio_tpu_torch.pipeline.odometry import OdometryConfig
     from gorio_tpu_torch.pipeline.slam import SLAMConfig
 
-    jslam = JSlam(enable_loop_closure=False, gyr_var=2e-5)
+    jslam = JSlam(enable_loop_closure=False, gyr_var=2e-5,
+                  loop=JLoop(accum_distance_thresh=20.0, sc_candidates=1))
     slam_cfg = config_from_dict(SLAMConfig, jslam._asdict())
     assert slam_cfg.gyr_var == 2e-5 and slam_cfg.solve.max_iterations == 30
     assert slam_cfg.info == config_from_dict(type(slam_cfg.info), jslam.info._asdict())
-    assert isinstance(slam_cfg.loop, dict) and isinstance(slam_cfg.ugpm, dict)
+    assert slam_cfg.loop == LoopConfig(accum_distance_thresh=20.0, sc_candidates=1)
+    assert isinstance(slam_cfg.solve, SolveConfig) and isinstance(slam_cfg.ugpm, dict)
+    assert config_from_dict(ScanContextConfig, JSC(num_candidates=5)._asdict()) == \
+        ScanContextConfig(num_candidates=5)
     odo = config_from_dict(OdometryConfig, JOdo(registration="gicp")._asdict())
     assert odo.registration == "gicp" and odo.gicp.lm.max_iterations == 64
     assert odo == OdometryConfig(registration="gicp", ndt=odo.ndt, groundseg=odo.groundseg)
