@@ -43,7 +43,8 @@ Phases, one line each (more for the tables):
                75 --rate 5 --seed 22 --circuit --laps 2 --dynamic 2` (373
                frames, two laps of a closed route), `slam --optimize-every 15
                --device cuda`, `evaluate`. Fails unless the block-sparse
-               solver ran, a candidate pair reached registration
+               solver ran at 256 and at 512 padded poses, a candidate pair
+               reached registration
                verification, a loop was accepted, no accepted loop joins two
                keyframes more than 7 m apart in ground truth, `nn1_select`
                launched over a batch of more than one pair, its launches
@@ -53,7 +54,29 @@ Phases, one line each (more for the tables):
                Prints each graph solve's time per LM iteration (the card
                synchronised around each) and profiles the last sparse solve
                once more.
-Both sequences are simulated in child processes started at the beginning,
+  6. full-slice — the 98-frame sequence with the paper's configuration:
+               `slam --fused --preprocess --floor --preint ugpm` (the fused
+               preprocessing frontend: gates, ego-velocity, dynamic-object
+               removal, deskew, Patchwork++ ground segmentation, DBSCAN ids,
+               APDGICP; UGPM preintegration; the floor plane solved jointly
+               with the poses, dense at 128 padded poses). Fails unless the
+               launch identity above holds, dense plane solves ran, the
+               keyframes are within 2% of the JAX package's record and the
+               ATE is <= 0.05 m.
+  7. full-circuit — the circuit with the same four flags and
+               `--optimize-every 15` (the configuration of ACCURACY.json's and
+               RECALL.json's circuit): fails unless sparse plane solves ran,
+               the keyframes (+-2%), loops (+-2, none with a ground-truth
+               endpoint gap over 7 m), ATE (<= 1.25 x + 0.02 m) and the floor
+               plane (normal within 1e-2 rad, offset within 0.05 m) hold
+               against the JAX package's record on float64 frames (the
+               frames the port's CLI uploads). It prints the same comparison
+               with the JAX CLI's own run on its float32 frames (ACCURACY.json's
+               record), which is not held (ROADMAP Queue C).
+  Phases 5-7 print the stage medians and means, every graph solve's time per
+  LM iteration, UGPM's ms per keyframe (the card synchronised around each
+  call), the launches, and the card's name and power limit on the same line.
+The two sequences are simulated in child processes started at the beginning,
 beside the build and the kernel phase. Then the kernels' JSON line, the card
 line, and the last line `{"ok": true, "device": {...}}`. Any failure exits
 non-zero with no result.
@@ -83,11 +106,49 @@ VERIFY = f"loop verification: B={VERIFY_B} pairs of (2048, 3), the main path's t
 CIRCUIT_SIM = ["--duration", "75", "--rate", "5", "--seed", "22", "--circuit", "--laps", "2",
                "--dynamic", "2"]
 # The JAX package's record of the same commands (`python -m gorio_tpu.cli`,
-# CPU, JAX_ENABLE_X64=1; PERF.md): the slice has no loop; the circuit
-# 361 keyframes, 13 loops, ATE 0.029995 m
+# CPU, JAX_ENABLE_X64=1; PERF.md): the slice has no loop; the circuit 361
+# keyframes, 13 loops, ATE 0.029995 m
 SLICE_JAX_LOOPS = 0
 CIRCUIT_JAX = {"keyframes": 361, "loops": 13, "ate_m": 0.02999533198297208}
+CIRCUIT_SPARSE_POSES = (256, 512)  # the padded pose counts of its sparse solves
 FALSE_RADIUS_M = 7.0  # RECALL.json's false_radius_m
+FULL = ["--fused", "--preprocess", "--floor", "--preint", "ugpm"]
+# The JAX package's record of the same commands with the four flags, on the
+# frames as float64 (`PYTHONPATH= JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 python
+# -m gorio_tpu.cli slam ... --fused --preprocess --floor --preint ugpm
+# [--optimize-every 15]`, its reader's float32 frames handed over as
+# float64, as the port's CLI uploads them; then `evaluate`; PERF.md): the
+# floor plane [n, d] in the world frame, the accepted loops (key_new,
+# key_old, fitness). On its float32 frames the JAX package's fused LM ends
+# millimetres from its own float64 run, and the circuit's loops follow.
+FULL_SLICE_JAX = {"keyframes": 80, "loops": [], "ate_m": 0.027108189154713712,
+                  "rte_m": 0.02574896282294756,
+                  "floor": [-0.02892324255175875, -0.10207407046233284, 0.99435623907106,
+                            2.968624458738188]}
+FULL_CIRCUIT_JAX = {
+    "keyframes": 360, "ate_m": 0.11139701525822152, "rte_m": 0.016120189131934793,
+    "loops": [(168, 0, 0.4339), (221, 47, 0.3936), (232, 53, 0.0956), (245, 69, 0.0599),
+              (258, 83, 0.0603), (269, 90, 0.1245), (282, 104, 0.0617)],
+    "floor": [-0.0537109826476861, 0.025717365997253324, 0.9982252989326524,
+              2.1943016033809934],
+    "gate_counts": {"no_eligible_candidate": 39, "accum_distance": 116, "yaw": 18,
+                    "ellipse_since_last_loop": 57, "gated_fallback_match": 163, "accepted": 7,
+                    "interval": 89, "not_converged": 9, "pairwise": 87, "fallback_trans": 20,
+                    "sc_distance": 2}}
+# The JAX CLI's own run of the full-circuit command, on its reader's float32
+# frames (JAX_ENABLE_X64=1, CPU; ACCURACY.json's 10 loops and 0.1233 m):
+# printed beside the port's, not held. Its float32 LM stops millimetres from
+# the float64 one within a few frames, and the port's does not follow it
+# (`tests/test_torch_fused_frames.py`).
+FULL_CIRCUIT_JAX32 = {
+    "keyframes": 360, "ate_m": 0.12328771985040748, "rte_m": 0.01614211419166521,
+    "loops": [(173, 1, 0.3126), (190, 10, 0.0876), (205, 21, 0.1346), (220, 40, 0.0678),
+              (230, 56, 0.0817), (244, 68, 0.0646), (256, 80, 0.062), (268, 93, 0.0736),
+              (281, 108, 0.0749), (291, 113, 0.0647)],
+    "floor": [-0.057263361084994975, 0.028297373638347605, 0.9979579981754849,
+              2.226405724383945]}
+FLOOR_NORMAL_RAD, FLOOR_OFFSET_M = 1e-2, 0.05
+CARD = ""  # the card's `nvidia-smi` name and power limit, set by main()
 
 
 def fail(msg):
@@ -416,15 +477,17 @@ def check_common(what, slam, odo, launches):
 
 def report(what, n_frames, slam, timer, launches, batched, wall, result, lm_iters, verify_iters):
     medians = {k: 1000 * statistics.median(v) for k, v in timer.samples.items()}
-    print(f"[{what}] frames {n_frames}, keyframes {len(slam.keyframes)}, loops "
+    means = {k: 1000 * statistics.mean(v) for k, v in timer.samples.items()}
+    print(f"[{what}] {CARD}: frames {n_frames}, keyframes {len(slam.keyframes)}, loops "
           f"{[(l.key_new, l.key_old, round(float(l.fitness), 4)) for l in slam.loops]}, "
           f"LM iterations {lm_iters} (odometry) + {verify_iters} (verification), launches "
           f"{launches} ({batched} over more than one lane), solves {slam.solver_counts}, "
           f"wall {wall:.2f} s ({n_frames / wall:.2f} frames/s), ATE {result['ate_rmse_m']:.6f} m, "
           f"RTE {result['rte_m']:.6f} m", flush=True)
     print(f"[{what}] loop gate counts {slam.loop_detector.gate_counts}", flush=True)
-    print(f"[{what}] stage median ms: "
-          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(medians.items())), flush=True)
+    print(f"[{what}] stage median / mean ms: "
+          + ", ".join(f"{k} {medians[k]:.2f} / {means[k]:.2f}" for k in sorted(medians)),
+          flush=True)
 
 
 def slice_phase(K, seq, tmp):
@@ -443,106 +506,140 @@ def slice_phase(K, seq, tmp):
 
 
 class SolveTimer:
-    """Times every graph solve of the slam back end on the card: wraps the
-    dense and the block-sparse solver where `pipeline/slam.py` calls them,
-    synchronising the card around each, and keeps the last sparse call's
-    arguments for a profiled replay. Restores both on exit."""
+    """Times every graph solve of the slam back end on the card, and every
+    UGPM preintegration: wraps the four solvers (pose-only and joint pose +
+    plane, dense and block-sparse) and `ugpm_preintegrate` where
+    `pipeline/slam.py` calls them, synchronising the card around each, and
+    keeps the last block-sparse call's arguments for a profiled replay.
+    Restores them on exit."""
 
-    def __init__(self):
+    SOLVERS = {"dense": "optimize_graph", "sparse": "optimize_graph_sparse",
+               "dense_planes": "optimize_graph_with_planes",
+               "sparse_planes": "optimize_graph_with_planes_sparse"}
+
+    def __init__(self, what):
         import gorio_tpu_torch.pipeline.slam as slam_mod
 
-        self.mod, self.solves, self.last_sparse = slam_mod, [], None
-        self.orig = {"dense": slam_mod.optimize_graph, "sparse": slam_mod.optimize_graph_sparse}
+        self.what, self.mod = what, slam_mod
+        self.solves, self.ugpm_s, self.last_sparse = [], [], None
+        self.orig = {k: getattr(slam_mod, n) for k, n in self.SOLVERS.items()}
+        self.orig["ugpm"] = slam_mod.ugpm_preintegrate
 
     def _wrap(self, kind):
         import torch
 
-        def timed(poses0, graph, cfg):
-            if kind == "sparse":
-                self.last_sparse = (poses0, graph, cfg)
+        def timed(*args):
+            if kind.startswith("sparse"):
+                self.last_sparse = (kind, args)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res = self.orig[kind](poses0, graph, cfg)
+            res = self.orig[kind](*args)
             torch.cuda.synchronize()
-            self.solves.append((kind, poses0.shape[0], int(res.iterations),
+            self.solves.append((kind, args[0].shape[0], int(res.iterations),
                                 time.perf_counter() - t0))
             return res
         return timed
 
+    def _ugpm(self, *args, **kwargs):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = self.orig["ugpm"](*args, **kwargs)
+        torch.cuda.synchronize()
+        self.ugpm_s.append(time.perf_counter() - t0)
+        return res
+
     def __enter__(self):
-        self.mod.optimize_graph, self.mod.optimize_graph_sparse = (
-            self._wrap("dense"), self._wrap("sparse"))
+        for kind, name in self.SOLVERS.items():
+            setattr(self.mod, name, self._wrap(kind))
+        self.mod.ugpm_preintegrate = self._ugpm
         return self
 
     def __exit__(self, *exc):
-        self.mod.optimize_graph, self.mod.optimize_graph_sparse = (
-            self.orig["dense"], self.orig["sparse"])
+        for kind, name in self.SOLVERS.items():
+            setattr(self.mod, name, self.orig[kind])
+        self.mod.ugpm_preintegrate = self.orig["ugpm"]
 
     def report(self):
         """Per solver and padded pose count: solves, LM iterations, seconds,
-        ms per LM iteration; then the last sparse solve's first three LM
-        iterations replayed under the profiler: device activities and device
-        busy time per LM iteration."""
+        ms per LM iteration; UGPM's ms per keyframe; then the last sparse
+        solve's first three LM iterations replayed under the profiler: device
+        activities and device busy time per LM iteration."""
         import torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
+        what = self.what
         rows = {}
         for kind, K, iters, dt in self.solves:
             r = rows.setdefault((kind, K), [0, 0, 0.0])
             r[0], r[1], r[2] = r[0] + 1, r[1] + iters, r[2] + dt
         for (kind, K), (n, iters, dt) in sorted(rows.items()):
-            print(f"[circuit] {kind} solves at {K} padded poses: {n} solves, {iters} LM "
+            print(f"[{what}] {kind} solves at {K} padded poses: {n} solves, {iters} LM "
                   f"iterations, {dt:.3f} s, {1e3 * dt / max(iters, 1):.2f} ms per LM "
                   f"iteration", flush=True)
+        if self.ugpm_s:
+            ms = [1e3 * t for t in self.ugpm_s]
+            print(f"[{what}] {CARD}: UGPM preintegration {len(ms)} keyframes, "
+                  f"{statistics.median(ms):.2f} ms median / {statistics.mean(ms):.2f} ms mean "
+                  f"per keyframe (max {max(ms):.2f}, the first {ms[0]:.2f}), {sum(ms) / 1e3:.2f} s "
+                  f"in all", flush=True)
         if self.last_sparse is None:
             return
         # three LM iterations are enough for the per-iteration numbers, and
         # the profiler's host-side event list grows with every kernel
-        poses0, graph, cfg = self.last_sparse
+        kind, args = self.last_sparse
+        cfg = args[-1]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            res = self.orig["sparse"](poses0, graph, cfg._replace(max_iterations=3))
+            res = self.orig[kind](*args[:-1], cfg._replace(max_iterations=3))
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         iters = int(res.iterations)
         busy = sum(e.device_time_total for e in acts) / 1e3
-        print(f"[circuit] the last sparse solve replayed under the profiler "
-              f"({poses0.shape[0]} padded poses, {cfg.loop_capacity} loop slots): {iters} LM "
+        print(f"[{what}] the last {kind} solve replayed under the profiler "
+              f"({args[0].shape[0]} padded poses, {cfg.loop_capacity} loop slots): {iters} LM "
               f"iterations, "
               f"{len(acts) / iters:.0f} device activities and {busy / iters:.3f} ms of device "
               f"time per LM iteration, wall {1e3 * wall / iters:.2f} ms per LM iteration "
               f"(profiled), device busy {100 * busy / (1e3 * wall):.1f}%", flush=True)
 
 
-def circuit_phase(K, seq, tmp):
+def loop_gaps(seq, slam):
+    """Ground-truth distance between the endpoints of each accepted loop, at
+    the keyframe stamps (as scripts/recall_benchmark.py measures it)."""
     import numpy as np
 
     from gorio_tpu_torch.io.tum import load_tum
 
-    with SolveTimer() as solves:
+    gs, gp = load_tum(seq / "groundtruth.tum")
+    stamps = np.asarray([kf.stamp for kf in slam.keyframes])
+    pos = np.stack([np.interp(stamps, gs, gp[:, k, 3]) for k in range(3)], axis=1)
+    return [float(np.linalg.norm(pos[l.key_new] - pos[l.key_old])) for l in slam.loops]
+
+
+def circuit_phase(K, seq, tmp):
+    with SolveTimer("circuit") as solves:
         slam, odo, timer, launches, batched, wall, result = run_slam(
             K, seq, tmp / "circuit.tum", ["--optimize-every", "15"])
     lm_iters, verify_iters = check_common("circuit", slam, odo, launches)
     report("circuit", len(list(seq.glob("*.grf"))), slam, timer, launches, batched, wall,
            result, lm_iters, verify_iters)
     det = slam.loop_detector
-    # ground-truth distance between the endpoints of each accepted loop, at
-    # the keyframe stamps (as scripts/recall_benchmark.py measures it)
-    gs, gp = load_tum(seq / "groundtruth.tum")
-    stamps = np.asarray([kf.stamp for kf in slam.keyframes])
-    pos = np.stack([np.interp(stamps, gs, gp[:, k, 3]) for k in range(3)], axis=1)
-    gaps = [float(np.linalg.norm(pos[l.key_new] - pos[l.key_old])) for l in slam.loops]
+    gaps = loop_gaps(seq, slam)
     print(f"[circuit] pairs verified {len(det.candidate_log)}, accepted loops' ground-truth "
           f"endpoint gaps (m) {[round(g, 3) for g in gaps]}", flush=True)
     solves.report()
 
     n_kf, n_loops, ate = len(slam.keyframes), len(slam.loops), result["ate_rmse_m"]
     ate_max = 1.25 * CIRCUIT_JAX["ate_m"] + 0.02
-    if slam.solver_counts["sparse"] == 0:
-        fail(f"circuit: the block-sparse solver never ran ({slam.solver_counts})")
+    sparse_at = {K for kind, K, _, _ in solves.solves if kind == "sparse"}
+    if not sparse_at >= set(CIRCUIT_SPARSE_POSES):
+        fail(f"circuit: block-sparse solves at {sorted(sparse_at)} padded poses, not at all of "
+             f"{CIRCUIT_SPARSE_POSES} ({slam.solver_counts})")
     if not det.candidate_log:
         fail(f"circuit: no candidate pair reached registration verification "
              f"({det.gate_counts})")
@@ -564,6 +661,91 @@ def circuit_phase(K, seq, tmp):
     return launches
 
 
+def full_phase(K, seq, tmp, what, flags, jax_rec, ate_max, planes_kind):
+    """The paper's configuration through the port's CLI: the common checks,
+    the loops and their ground-truth gaps, the floor plane, and the limits
+    against the JAX package's record `jax_rec`."""
+    import numpy as np
+
+    with SolveTimer(what) as solves:
+        slam, odo, timer, launches, batched, wall, result = run_slam(
+            K, seq, tmp / f"{what}.tum", [*FULL, *flags])
+    lm_iters, verify_iters = check_common(what, slam, odo, launches)
+    report(what, len(list(seq.glob("*.grf"))), slam, timer, launches, batched, wall, result,
+           lm_iters, verify_iters)
+    gaps = loop_gaps(seq, slam)
+    print(f"[{what}] pairs verified {len(slam.loop_detector.candidate_log)}, accepted loops' "
+          f"ground-truth endpoint gaps (m) {[round(g, 3) for g in gaps]}; JAX loops "
+          f"{jax_rec['loops']}", flush=True)
+    solves.report()
+
+    floor = slam.floor_plane
+    if floor is None or not np.isfinite(floor).all():
+        fail(f"{what}: no finite floor plane ({floor})")
+    floored = sum(kf.floor_coeffs is not None for kf in slam.keyframes)
+    ang, off = floor_gap(floor, jax_rec)
+    print(f"[{what}] floor plane [n, d] {[round(float(x), 6) for x in floor]} from {floored} "
+          f"floored keyframes (JAX {[round(x, 6) for x in jax_rec['floor']]}): normal {ang:.3g} "
+          f"rad, offset {off:.3g} m apart", flush=True)
+
+    n_kf, n_loops, ate = len(slam.keyframes), len(slam.loops), result["ate_rmse_m"]
+    jax_kf, jax_loops = jax_rec["keyframes"], len(jax_rec["loops"])
+    if slam.solver_counts[planes_kind] == 0:
+        fail(f"{what}: no {planes_kind} solve ran ({slam.solver_counts})")
+    if not solves.ugpm_s:
+        fail(f"{what}: UGPM never ran")
+    if abs(n_kf - jax_kf) > 0.02 * jax_kf:
+        fail(f"{what}: {n_kf} keyframes, the JAX record {jax_kf} +- 2%")
+    if abs(n_loops - jax_loops) > 2:
+        fail(f"{what}: {n_loops} loops, the JAX record {jax_loops} +- 2")
+    if any(g > FALSE_RADIUS_M for g in gaps):
+        fail(f"{what}: a false loop, endpoints {max(gaps):.2f} m > {FALSE_RADIUS_M} m apart")
+    if not ate <= ate_max:
+        fail(f"{what}: ATE {ate} m > {ate_max} m")
+    print(f"[{what}] keyframes {n_kf} (JAX {jax_kf}), loops {n_loops} (JAX {jax_loops}), ATE "
+          f"{ate:.6f} m (JAX {jax_rec['ate_m']:.6f} m, limit {ate_max:.6f} m), RTE "
+          f"{result['rte_m']:.6f} m (JAX {jax_rec['rte_m']:.6f} m)", flush=True)
+    return slam, result, launches, (ang, off)
+
+
+def floor_gap(floor, rec):
+    """(angle between the normals in rad, offset difference in m) of the
+    world floor plane `floor` and a record's."""
+    import numpy as np
+
+    want = np.asarray(rec["floor"])
+    cos = floor[:3] @ want[:3] / np.linalg.norm(floor[:3]) / np.linalg.norm(want[:3])
+    return float(np.arccos(np.clip(cos, -1.0, 1.0))), float(abs(floor[3] - want[3]))
+
+
+def full_slice_phase(K, seq, tmp):
+    _, _, launches, _ = full_phase(K, seq, tmp, "full-slice", [], FULL_SLICE_JAX, ATE_MAX,
+                                   "dense_planes")
+    return launches
+
+
+def full_circuit_phase(K, seq, tmp):
+    ate_max = 1.25 * FULL_CIRCUIT_JAX["ate_m"] + 0.02
+    slam, result, launches, (ang, off) = full_phase(
+        K, seq, tmp, "full-circuit", ["--optimize-every", "15"], FULL_CIRCUIT_JAX, ate_max,
+        "sparse_planes")
+    print(f"[full-circuit] loop gate counts of the JAX record {FULL_CIRCUIT_JAX['gate_counts']}",
+          flush=True)
+    rec32 = FULL_CIRCUIT_JAX32
+    ang32, off32 = floor_gap(slam.floor_plane, rec32)
+    print(f"[full-circuit] beside the JAX CLI's run on its float32 frames (not held): keyframes "
+          f"{len(slam.keyframes)} (JAX {rec32['keyframes']}), loops {len(slam.loops)} (JAX "
+          f"{len(rec32['loops'])}: {rec32['loops']}), ATE {result['ate_rmse_m']:.6f} m (JAX "
+          f"{rec32['ate_m']:.6f} m, 1.25 x + 0.02 m = {1.25 * rec32['ate_m'] + 0.02:.6f} m), floor "
+          f"plane {ang32:.3g} rad / {off32:.3g} m apart", flush=True)
+    if ang > FLOOR_NORMAL_RAD or off > FLOOR_OFFSET_M:
+        fail(f"full-circuit: floor plane {ang:.3g} rad / {off:.3g} m from the JAX record "
+             f"(limits {FLOOR_NORMAL_RAD} rad, {FLOOR_OFFSET_M} m)")
+    if FULL_CIRCUIT_JAX["loops"] and not slam.loops:
+        fail("full-circuit: no loop accepted")
+    return launches
+
+
 def main():
     if not (ROOT / "gorio_tpu_torch" / "ops" / "csrc" / "nn1.cu").is_file():
         fail(f"no gorio_tpu_torch package beside {Path(__file__).name}: run from the repository")
@@ -572,7 +754,8 @@ def main():
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
-    card = card_line()
+    global CARD
+    card = CARD = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"[device] {card} | torch {torch.__version__} (CUDA {torch.version.cuda}) | "
           f"{kind} | count {torch.cuda.device_count()}", flush=True)
@@ -617,8 +800,10 @@ def run_phases(tmp, sims):
     errs, stats, stats_b, S_main = kernel_phase(K)
     wait_for(sims["slice"], "slice")
     launches = {"slice": slice_phase(K, tmp / "slice", tmp)}
+    launches["full-slice"] = full_slice_phase(K, tmp / "slice", tmp)
     wait_for(sims["circuit"], "circuit")
     launches["circuit"] = circuit_phase(K, tmp / "circuit", tmp)
+    launches["full-circuit"] = full_circuit_phase(K, tmp / "circuit", tmp)
 
     replaces = {"nn1": "gorio_tpu/ops/nn_pallas.py:34",
                 "nn1_select": "gorio_tpu/ops/nn_pallas.py:125"}

@@ -7,10 +7,11 @@
 Usage: python -m gorio_tpu_torch.cli <command> [args]
 
 `slam` accepts every flag of `python -m gorio_tpu.cli slam` and, like it,
-runs loop closure unless `--no-loops`; the flags that need a module the port
-does not have yet raise NotImplementedError naming the ROADMAP item that
-ports it. `--device` picks the torch device (default cuda); there is no
-fallback to the CPU.
+runs loop closure unless `--no-loops`; `--fused`, `--preprocess`, `--floor`
+and `--preint ugpm` run as there. The flags that need a module the port
+does not have yet (`--config`, `--registration ndt`, `--dump`, `--map`)
+raise NotImplementedError naming the ROADMAP item that ports it. `--device`
+picks the torch device (default cuda); there is no fallback to the CPU.
 """
 
 from __future__ import annotations
@@ -92,10 +93,6 @@ def _check_slam_flags(args):
     """Refuse the flags whose modules are not ported yet."""
     refused = [
         (args.config, "--config (the typed config tree)", "A13"),
-        (args.fused, "--fused", "A10"),
-        (args.preprocess, "--preprocess", "A10"),
-        (args.floor, "--floor", "A10"),
-        (args.preint == "ugpm", "--preint ugpm", "A11"),
         (args.registration == "ndt", "--registration ndt", "A12"),
         (args.dump, "--dump", "A13"),
         (args.map, "--map", "A13"),
@@ -112,6 +109,7 @@ def cmd_slam(args):
     from .estimators.egovel import EgoVelConfig, estimate_ego_velocity
     from .io.native import NativePipelineDataset
     from .pipeline.odometry import OdometryConfig, ScanMatchingOdometry
+    from .pipeline.preprocessing import PreprocessConfig
     from .pipeline.slam import RadarGraphSLAM, SLAMConfig
 
     _check_slam_flags(args)
@@ -132,6 +130,7 @@ def cmd_slam(args):
             preint_mode=args.preint,
             gyr_var=float(imu["gyr_var"]),
             vel_var=float(imu["vel_var"]),
+            enable_floor_constraint=args.floor,
         ),
         device=device,
     )
@@ -150,6 +149,22 @@ def cmd_slam(args):
         print(f"pushed {len(gps_npz['t'])} GPS fixes")
 
     odo = ScanMatchingOdometry(OdometryConfig(registration=args.registration))
+    if args.preprocess:
+        odo.preprocess_cfg = PreprocessConfig()
+    gyr_t_arr, gyr_arr = np.asarray(imu["gyr_t"]), np.asarray(imu["gyr"])
+
+    def omega_at(t):
+        """The latest gyro sample at or before `t` (deskew's rate)."""
+        if gyr_t_arr.size == 0:
+            return None
+        return gyr_arr[np.clip(np.searchsorted(gyr_t_arr, t) - 1, 0, gyr_t_arr.size - 1)]
+
+    def accept_floor(n_ground, plane):
+        """Confident, roughly horizontal ground fits only."""
+        return (slam.cfg.enable_floor_constraint
+                and n_ground >= slam.cfg.floor_min_ground_points
+                and abs(plane[2]) > slam.cfg.floor_max_tilt_nz)
+
     timer = StageTimer(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
@@ -159,20 +174,47 @@ def cmd_slam(args):
     for stamp, n_pts, packed in ds:
         r = np.linalg.norm(packed[:n_pts, :3], axis=1)
         point_dist += np.bincount(np.clip(r.astype(np.int64), 0, 99), minlength=100)
-        # copy out of the reader's reused buffer onto the device
-        frame = torch.tensor(packed[:n_pts], device=device)
-        cloud = make_cloud(
-            frame[:, :3], intensity=frame[:, 3], doppler=frame[:, 4], capacity=args.capacity
-        )
-        with timer.stage("ego_velocity"):
-            ego = estimate_ego_velocity(cloud, EgoVelConfig(), generator=gen)
-            v = ego.v.cpu().numpy()
+        floor = None
+        if args.fused:
+            # one upload of the padded frame (a copy out of the reader's
+            # reused buffer), one program, one pull. In float64: the JAX
+            # package runs this path in the frame's float32, where its LM
+            # ends millimetres away from its own float64 run
+            with timer.stage("frontend_fused"):
+                pose, v = odo.step_fused(
+                    float(stamp), torch.tensor(packed, dtype=torch.float64, device=device), n_pts,
+                    ground=args.floor,
+                    omega=omega_at(float(stamp)) if args.preprocess else None, generator=gen)
             if online_twists:
                 slam.push_twist(float(stamp), v)
-        with timer.stage("scan_matching"):
-            pose = odo.step(float(stamp), cloud, v)
+            cloud = odo.last_cloud  # built on the device inside the step
+            has_ground = args.floor or (args.preprocess and odo.preprocess_cfg.enable_ground_seg)
+            if has_ground and accept_floor(odo.last_ground_count, odo.last_plane):
+                floor = odo.last_plane
+        else:
+            # copy out of the reader's reused buffer onto the device
+            frame = torch.tensor(packed[:n_pts], device=device)
+            cloud = make_cloud(
+                frame[:, :3], intensity=frame[:, 3], doppler=frame[:, 4], capacity=args.capacity
+            )
+            with timer.stage("ego_velocity"):
+                ego = estimate_ego_velocity(cloud, EgoVelConfig(), generator=gen)
+                v = ego.v.cpu().numpy()
+                if online_twists:
+                    slam.push_twist(float(stamp), v)
+            with timer.stage("scan_matching"):
+                pose = odo.step(float(stamp), cloud, v)
+            if args.floor:
+                from .estimators.groundseg import GroundSegConfig, estimate_ground
+
+                with timer.stage("ground_seg"):
+                    seg = estimate_ground(cloud, GroundSegConfig())
+                    fit = torch.cat([torch.sum(seg.ground_mask).to(seg.plane.dtype)[None],
+                                     seg.plane]).cpu().numpy()
+                    if accept_floor(int(fit[0]), fit[1:].astype(np.float64)):
+                        floor = fit[1:].astype(np.float64)
         with timer.stage("backend"):
-            slam.add_frame(float(stamp), cloud, pose)
+            slam.add_frame(float(stamp), cloud, pose, floor_coeffs=floor)
             if args.optimize_every and len(slam.keyframes) % args.optimize_every == 0:
                 slam.optimize(window=args.optimize_window or None)
         n += 1
@@ -203,6 +245,8 @@ def cmd_slam(args):
                     "lm_iterations": sum(st.iterations for st in odo.statuses),
                     "verify_lm_iterations": slam.loop_detector.verify_iterations,
                     "solver_counts": slam.solver_counts,
+                    "floor_plane": (None if slam.floor_plane is None
+                                    else slam.floor_plane.tolist()),
                     "keyframe_stamps": [round(float(s), 6) for s in stamps],
                     "point_distribution": (point_dist / max(n, 1)).round(2).tolist(),
                     "device": str(device),

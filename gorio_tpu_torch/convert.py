@@ -17,14 +17,25 @@ from .graph.factors import (
     BetweenFactors,
     GraphData,
     GroundPlaneFactors,
+    PlaneGraphData,
+    PlanePlaneFactors,
+    PlanePriorFactors,
     PointPriorFactors,
     PriorFactors,
     QuatPriorFactors,
+    SE3PlaneFactors,
+    UTMAlignFactors,
     VecPriorFactors,
+    ZBetweenFactors,
 )
 
-_FAMILIES = (BetweenFactors, PriorFactors, PointPriorFactors, QuatPriorFactors,
-             VecPriorFactors, GroundPlaneFactors)  # in GraphData's field order
+_FAMILIES = {  # the factor families of each graph type, in field order
+    GraphData: (BetweenFactors, PriorFactors, PointPriorFactors, QuatPriorFactors,
+                VecPriorFactors, GroundPlaneFactors),
+    PlaneGraphData: (PlanePriorFactors, PlanePlaneFactors, SE3PlaneFactors, ZBetweenFactors,
+                     UTMAlignFactors),
+}
+_INDEX_FIELDS = ("i", "j", "kind")
 
 
 def _fields(obj) -> dict:
@@ -38,28 +49,36 @@ def cloud_from_numpy(cloud, device=None) -> PointCloud:
                          for k in PointCloud._fields})
 
 
-def graph_from_numpy(graph, device=None) -> GraphData:
-    """A frozen JAX `GraphData` (or nested dicts of its arrays) -> port
-    `GraphData`; factor indices become int64."""
+def graph_from_numpy(graph, device=None, kind=GraphData):
+    """A frozen JAX `GraphData` (or `PlaneGraphData` with
+    `kind=PlaneGraphData`; or nested dicts of their arrays) -> the port's;
+    factor indices and plane-plane kinds become int64."""
     g = _fields(graph)
     families = []
-    for name, cls in zip(GraphData._fields, _FAMILIES):
+    for name, cls in zip(kind._fields, _FAMILIES[kind]):
         fam = _fields(g[name])
         families.append(cls(**{
-            k: torch.as_tensor(np.array(fam[k], dtype=np.int64 if k in ("i", "j") else None),
-                               device=device)
+            k: torch.as_tensor(
+                np.array(fam[k], dtype=np.int64 if k in _INDEX_FIELDS else None), device=device)
             for k in cls._fields
         }))
-    return GraphData(*families)
+    return kind(*families)
+
+
+def plane_graph_from_numpy(planes, plane_graph, device=None):
+    """The JAX `freeze_planes()` pair (planes (M, 4), `PlaneGraphData`) ->
+    the port's."""
+    return (torch.as_tensor(np.array(planes), device=device),
+            graph_from_numpy(plane_graph, device, kind=PlaneGraphData))
 
 
 def config_from_dict(cls, data):
     """A JAX config (NamedTuple or dict, nested configs included) -> the
     port's config class `cls` (`SLAMConfig`, `LoopConfig`,
-    `ScanContextConfig`, `SolveConfig`, ...). Nested configs of ported
-    modules are converted recursively; configs of modules the port does not
-    have yet (NDT, ground segmentation, UGPM) are kept as plain dicts.
-    Unknown field names raise."""
+    `ScanContextConfig`, `SolveConfig`, `UGPMConfig`, `PreprocessConfig`,
+    `GroundSegConfig`, `DBSCANConfig`, ...). Nested configs of ported
+    modules are converted recursively; the config of a module the port does
+    not have yet (NDT) is kept as a plain dict. Unknown field names raise."""
     d = _fields(data)
     unknown = set(d) - set(cls._fields)
     if unknown:
@@ -71,6 +90,8 @@ def config_from_dict(cls, data):
             kw[k] = config_from_dict(type(default), v)
         elif hasattr(v, "_asdict"):
             kw[k] = dict(v._asdict())
+        elif isinstance(default, tuple) and isinstance(v, list):
+            kw[k] = tuple(v)  # tuple fields (ring / sector counts) read back from JSON
         else:
             kw[k] = v
     return cls(**kw)

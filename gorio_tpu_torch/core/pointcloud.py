@@ -1,6 +1,6 @@
 """Fixed-shape point-cloud container.
 
-Port of `PointCloud`, `make_cloud` and `filter_cloud` from
+Port of `PointCloud`, `make_cloud`, `filter_cloud` and `distance_filter` from
 `gorio_tpu/core/pointcloud.py`: a NamedTuple of padded tensors plus a
 validity mask, so every cloud of a sequence has the same shape and every op
 is mask-aware.
@@ -91,3 +91,10 @@ def filter_cloud(cloud: PointCloud, keep) -> PointCloud:
         mask=new_mask,
         xyz=torch.where(new_mask[:, None], cloud.xyz, torch.full_like(cloud.xyz, PAD_COORD)),
     )
+
+
+def distance_filter(cloud: PointCloud, min_dist, max_dist, min_z=-1e30, max_z=1e30):
+    """Range / z gating (`preprocessing_nodelet_ntu.cpp:639`)."""
+    d = torch.linalg.norm(cloud.xyz, dim=-1)
+    z = cloud.xyz[:, 2]
+    return filter_cloud(cloud, (d > min_dist) & (d < max_dist) & (z > min_z) & (z < max_z))

@@ -25,20 +25,35 @@ Matrix products keep full float32 on the card (`allow_tf32 = False`, the
 JAX package's `_f32_matmuls`): TF32 would floor the LM's chi2 the way the
 TPU's bf16 passes did.
 
-`solver="cg"` (ROADMAP A7-sparse-cg) and the joint pose+plane solver
-`optimize_graph_with_planes_sparse` (ROADMAP A10) are not ported yet.
+The joint pose + plane solver `optimize_graph_with_planes_sparse` carries
+the 3M plane coordinates as a dense tail: the pose block is solved by the
+same tridiagonal + Woodbury pass with the pose-plane coupling columns as
+extra right-hand sides, then a 3M x 3M Schur complement gives the planes.
+`solver="cg"` is not ported yet (ROADMAP A7-sparse-cg).
 """
 
 from __future__ import annotations
 
-import functools
 from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
 
-from .factors import BetweenFactors, GraphData, retract
-from .solver import SolveConfig, _binary_terms, _unary_families, _unary_terms, _weighted, graph_chi2
+from .factors import BetweenFactors, GraphData, PlaneGraphData, retract, retract_plane
+from .solver import (
+    _CG_REFUSED,
+    SolveConfig,
+    _binary_terms,
+    _f32_matmuls,
+    _JtJ,
+    _Jtr,
+    _plane_factor_terms,
+    _unary_families,
+    _unary_terms,
+    _weighted,
+    graph_chi2,
+    plane_graph_chi2,
+)
 
 
 class SparseSolveResult(NamedTuple):
@@ -49,19 +64,13 @@ class SparseSolveResult(NamedTuple):
     H_diag: torch.Tensor  # (K, 6, 6) diagonal blocks of H at the last linearization
 
 
-def _f32_matmuls(fn):
-    """Run `fn` with TF32 off for cuBLAS matmuls (restored afterwards)."""
-
-    @functools.wraps(fn)
-    def wrapped(*args, **kwargs):
-        prev = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            return fn(*args, **kwargs)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = prev
-
-    return wrapped
+class SparsePlaneSolveResult(NamedTuple):
+    poses: torch.Tensor
+    planes: torch.Tensor  # (M, 4)
+    chi2: torch.Tensor
+    iterations: torch.Tensor
+    lm_lambda: torch.Tensor
+    H_diag: torch.Tensor
 
 
 def _t(M):
@@ -363,10 +372,7 @@ def optimize_graph_sparse(poses0, graph: GraphData, cfg: SolveConfig = SolveConf
     `optimize_graph` (same factors, damping, accept rule): only the linear
     solve differs. The host reads the stop flag once per iteration."""
     if cfg.solver != "direct":
-        raise NotImplementedError(
-            f"sparse solver={cfg.solver!r}: only 'direct' is ported; the CG option is "
-            "ROADMAP A7-sparse-cg"
-        )
+        raise NotImplementedError(_CG_REFUSED)
     K = poses0.shape[0]
     dtype, device = poses0.dtype, poses0.device
     f = graph.between
@@ -408,7 +414,122 @@ def optimize_graph_sparse(poses0, graph: GraphData, cfg: SolveConfig = SolveConf
                              lm_lambda=lam, H_diag=Hd)
 
 
-def optimize_graph_with_planes_sparse(*args, **kwargs):
-    """The joint pose + plane sparse solver (floor constraint)."""
-    raise NotImplementedError("optimize_graph_with_planes_sparse is ported with the floor "
-                              "constraint (ROADMAP A10)")
+# ---------------------------------------------------------------------------
+# Joint pose + plane solver
+# ---------------------------------------------------------------------------
+
+
+def _plane_block_terms(poses, planes, pg: PlaneGraphData):
+    """Block contributions of the plane-vertex families: pose diagonal
+    (K,6,6), pose-pose off blocks of the z_between factors (E2,6,6), the
+    dense plane block (M,M,3,3), pose-plane cross blocks per SE3-plane
+    factor (F,6,3), gradients, chi2. `solver._plane_terms` without the
+    (K,K,...) tensors."""
+    K, M = poses.shape[0], planes.shape[0]
+    z = dict(dtype=poses.dtype, device=poses.device)
+    Hx, Hpp = torch.zeros((K, 6, 6), **z), torch.zeros((M, M, 3, 3), **z)
+    bx, bp = torch.zeros((K, 6), **z), torch.zeros((M, 3), **z)
+    t = _plane_factor_terms(poses, planes, pg)
+
+    f, (rw, w, c_pp, Jw) = pg.plane_priors, t["plane_priors"]
+    Hpp = Hpp.index_put((f.i, f.i), _JtJ(Jw, Jw, w), accumulate=True)
+    bp = bp.index_put((f.i,), _Jtr(Jw, rw, w), accumulate=True)
+
+    f, (rw, w, c_p2, Jiw, Jjw) = pg.plane_plane, t["plane_plane"]  # M is tiny: dense
+    for a, Ja, c, Jc in ((f.i, Jiw, f.i, Jiw), (f.j, Jjw, f.j, Jjw),
+                         (f.i, Jiw, f.j, Jjw), (f.j, Jjw, f.i, Jiw)):
+        Hpp = Hpp.index_put((a, c), _JtJ(Ja, Jc, w), accumulate=True)
+    bp = bp.index_put((f.i,), _Jtr(Jiw, rw, w), accumulate=True)
+    bp = bp.index_put((f.j,), _Jtr(Jjw, rw, w), accumulate=True)
+
+    f, (rw, w, c_sp, Jxw, Jpw) = pg.se3_plane, t["se3_plane"]
+    Hx = Hx.index_put((f.i,), _JtJ(Jxw, Jxw, w), accumulate=True)
+    Hpp = Hpp.index_put((f.j, f.j), _JtJ(Jpw, Jpw, w), accumulate=True)
+    Hxp = _JtJ(Jxw, Jpw, w)  # (F, 6, 3)
+    bx = bx.index_put((f.i,), _Jtr(Jxw, rw, w), accumulate=True)
+    bp = bp.index_put((f.j,), _Jtr(Jpw, rw, w), accumulate=True)
+
+    f, (rw, w, c_z, Jiw, Jjw) = pg.z_between, t["z_between"]
+    Hx = Hx.index_put((f.i,), _JtJ(Jiw, Jiw, w), accumulate=True)
+    Hx = Hx.index_put((f.j,), _JtJ(Jjw, Jjw, w), accumulate=True)
+    Hz_off = _JtJ(Jiw, Jjw, w)  # (E2, 6, 6)
+    bx = bx.index_put((f.i,), _Jtr(Jiw, rw, w), accumulate=True)
+    bx = bx.index_put((f.j,), _Jtr(Jjw, rw, w), accumulate=True)
+
+    f, (rw, w, c_u, Jiw) = pg.utm_align, t["utm_align"]
+    Hx = Hx.index_put((f.i,), _JtJ(Jiw, Jiw, w), accumulate=True)
+    bx = bx.index_put((f.i,), _Jtr(Jiw, rw, w), accumulate=True)
+    return Hx, Hz_off, Hpp, Hxp, bx, bp, c_pp + c_p2 + c_sp + c_z + c_u
+
+
+@_f32_matmuls
+def optimize_graph_with_planes_sparse(poses0, planes0, graph: GraphData,
+                                      plane_graph: PlaneGraphData,
+                                      cfg: SolveConfig = SolveConfig()) -> SparsePlaneSolveResult:
+    """Joint LM over poses and plane vertices on the block-sparse system,
+    `solver="direct"`: the pose block by the tridiagonal + Woodbury solve,
+    whose multi-RHS pass also carries the pose-plane coupling columns, then
+    a dense Schur complement over the 3M plane coordinates. Non-adjacent
+    z_between edges are not folded into the correction (the pipeline never
+    creates them), as in the JAX package. The host reads the stop flag once
+    per iteration."""
+    if cfg.solver != "direct":
+        raise NotImplementedError(_CG_REFUSED)
+    K, M = poses0.shape[0], planes0.shape[0]
+    dtype, device = poses0.dtype, poses0.device
+    fb, fz, fsp = graph.between, plane_graph.z_between, plane_graph.se3_plane
+    M3 = 3 * M
+    fw = fb._replace(mask=fb.mask & (fb.i != 0) & (fb.j != 0)) if cfg.fix_first else fb
+    rows6 = torch.arange(6, device=device)
+    cols3 = torch.arange(3, device=device)
+    colp = 3 * fsp.j[:, None, None] + cols3[None, None, :]  # (F, 1, 3) plane columns
+    rowp = (3 * fsp.j)[:, None, None] + cols3[None, :, None]  # (F, 3, 1) plane rows
+
+    poses, planes = poses0, planes0
+    lam = torch.tensor(cfg.lm_lambda_init, dtype=dtype, device=device)
+    chi2_state = torch.tensor(float("inf"), dtype=dtype, device=device)
+    Hd = torch.eye(6, dtype=dtype, device=device).expand(K, 6, 6)
+    it, done = 0, False
+    while it < cfg.max_iterations and not done:
+        Hdiag, Hoff, b, chi2 = build_block_normal_equations(poses, graph)
+        Hx, Hz_off, Hpp, Hxp, bx, bp, c2p = _plane_block_terms(poses, planes, plane_graph)
+        Hdiag, b, chi2 = Hdiag + Hx, b + bx, chi2 + c2p
+        if cfg.fix_first:
+            Hdiag[0] = torch.eye(6, dtype=dtype, device=device)
+            Hoff = torch.where(((fb.i == 0) | (fb.j == 0))[:, None, None], 0.0, Hoff)
+            Hz_off = torch.where(((fz.i == 0) | (fz.j == 0))[:, None, None], 0.0, Hz_off)
+            Hxp = torch.where((fsp.i == 0)[:, None, None], 0.0, Hxp)
+            b[0] = 0.0
+        A = _damped(Hdiag, lam)
+        Hpp_d = Hpp.permute(0, 2, 1, 3).reshape(M3, M3)
+        Hpp_d = Hpp_d + torch.diag(lam * torch.clamp(torch.diagonal(Hpp_d), min=1.0))
+        C = (_chain_upper_blocks(Hoff, fb.i, fb.j, K, dtype)
+             + _chain_upper_blocks(Hz_off, fz.i, fz.j, K, dtype))
+        # pose block: [ -b | G_p ] with G_p the pose-plane coupling columns
+        Gp = torch.zeros((K, 6, M3), dtype=dtype, device=device).index_put(
+            (fsp.i[:, None, None], rows6[None, :, None], colp), Hxp, accumulate=True)
+        X = solve_tridiag_woodbury(A, C, poses, fw, torch.cat([(-b)[..., None], Gp], -1),
+                                   cfg.loop_capacity)
+        # Schur complement over the plane coordinates
+        contrib = torch.einsum("fij,fin->fjn", Hxp, X[fsp.i])  # (F, 3, 1 + M3)
+        GtX = torch.zeros((M3, 1 + M3), dtype=dtype, device=device).index_put(
+            (rowp, torch.arange(1 + M3, device=device)[None, None, :]), contrib, accumulate=True)
+        dpl = torch.linalg.solve_ex(Hpp_d - GtX[:, 1:], -bp.reshape(-1) - GtX[:, 0])[0]
+        dx = X[:, :, 0] - torch.einsum("kin,n->ki", X[:, :, 1:], dpl)
+        if cfg.fix_first:
+            dx[0] = 0.0
+        poses_new = retract(poses, dx)
+        planes_new = retract_plane(planes, dpl.reshape(M, 3))
+        chi2_new = graph_chi2(poses_new, graph) + plane_graph_chi2(poses_new, planes_new,
+                                                                   plane_graph)
+        accept = chi2_new < chi2
+        poses = torch.where(accept, poses_new, poses)
+        planes = torch.where(accept, planes_new, planes)
+        lam = torch.where(accept, lam / cfg.lm_lambda_factor, lam * cfg.lm_lambda_factor)
+        rel = torch.abs(chi2 - chi2_new) / torch.clamp(chi2, min=1e-30)
+        chi2_state = torch.where(accept, chi2_new, chi2)
+        Hd = Hdiag
+        done = bool(accept & (rel < cfg.rel_tol))
+        it += 1
+    return SparsePlaneSolveResult(poses=poses, planes=planes, chi2=chi2_state,
+                                  iterations=torch.tensor(it), lm_lambda=lam, H_diag=Hd)

@@ -230,7 +230,8 @@ def _candidate_mask(i, poses, yaw_all, accum, alts, dist_since, cfg: LoopConfig)
 @dataclass
 class LoopDetector:
     """Host-side orchestrator over the batched device work. The
-    Scan-Context database lives on `device` (default: the CPU)."""
+    Scan-Context database lives on `device`: the card unless the caller
+    asks for the CPU (without a card, the default raises)."""
 
     cfg: LoopConfig = LoopConfig()
     sc_cfg: ScanContextConfig = ScanContextConfig()
@@ -245,7 +246,7 @@ class LoopDetector:
     # per-verified-candidate decision log (pair, seed, fitness, |t|, cycle
     # errors, final gate)
     candidate_log: list = field(default_factory=list)
-    device: Optional[torch.device] = None
+    device: torch.device = torch.device("cuda")
     # outer LM iterations of every verification batch (= nn1_select launches)
     verify_iterations: int = 0
 
@@ -253,6 +254,10 @@ class LoopDetector:
         self.gate_counts[gate] = self.gate_counts.get(gate, 0) + n
 
     def __post_init__(self):
+        self.device = torch.device(self.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"LoopDetector(device={self.device}): no CUDA device is "
+                               "available (pass device='cpu' to run on the CPU)")
         if self.db is None:
             self.db = ScanContextDB.create(self.capacity, self.sc_cfg, device=self.device)
 

@@ -1,6 +1,6 @@
 """Scan-matching odometry front-end.
 
-Port of `ScanMatchingOdometry.step` from `gorio_tpu/pipeline/odometry.py`
+Port of `ScanMatchingOdometry` from `gorio_tpu/pipeline/odometry.py`
 (`ScanMatchingOdometryNodelet`): per (ego-velocity, cloud) pair, align the
 new scan to the current keyframe scan from the cumulative ego-velocity
 guess, sanity-threshold the result against that prediction (with the IMU
@@ -8,8 +8,16 @@ fallback), and refresh the keyframe target on the delta gates. The
 registration runs on the clouds' device; the state machine runs on the host
 in float64 numpy.
 
-Not ported yet: the fused single-dispatch frontend (`step_fused`, ROADMAP
-A10), NDT registration (A12) and scan-to-submap mode (A10).
+`step_fused` is the fused frontend (`fused_frontend_step`): one upload of
+the packed frame and one of a small state vector, the cloud built on the
+device, [the full preprocessing chain ->] ego-velocity -> motion guess ->
+APDGICP -> inlier fraction, and one pull of a (25/30/31,) host vector, the
+JAX package's layout. Where the JAX program is one jitted dispatch, here
+it is a sequence of launches with the LM's per-iteration reads of its stop
+flags.
+
+Not ported yet: NDT registration (ROADMAP A12) and scan-to-submap mode
+(A10-scan-to-map, which needs `voxel_downsample`).
 """
 
 from __future__ import annotations
@@ -21,9 +29,11 @@ import numpy as np
 import torch
 
 from ..core.pointcloud import PointCloud
-from ..estimators.egovel import EgoVelConfig
+from ..estimators.egovel import EgoVelConfig, estimate_ego_velocity
+from ..estimators.groundseg import GroundSegConfig, estimate_ground
 from ..ops.nn import nn1_best
 from ..registration.gicp import GICPConfig, _transform, gicp_align
+from .preprocessing import PreprocessConfig, preprocess_frame
 
 
 class OdometryConfig(NamedTuple):
@@ -47,9 +57,9 @@ class OdometryConfig(NamedTuple):
     registration: str = "apdgicp"  # "apdgicp" | "gicp" here; "ndt" is ROADMAP A12
     gicp: GICPConfig = GICPConfig()
     ndt: Optional[dict] = None  # NDTConfig fields, for the NDT port (ROADMAP A12)
-    egovel: EgoVelConfig = EgoVelConfig()
-    groundseg: Optional[dict] = None  # GroundSegConfig fields (ROADMAP A10)
-    enable_scan_to_map: bool = False  # scan-to-submap mode (ROADMAP A10)
+    egovel: EgoVelConfig = EgoVelConfig()  # used by the fused frontend
+    groundseg: GroundSegConfig = GroundSegConfig()  # fused ground / floor segmentation
+    enable_scan_to_map: bool = False  # scan-to-submap mode (ROADMAP A10-scan-to-map)
     max_submap_frames: int = 5
     submap_resolution: float = 0.25
     submap_capacity: int = 8192
@@ -62,7 +72,8 @@ def check_supported(cfg: OdometryConfig):
             f"registration={cfg.registration!r} is ported with NDT/VGICP (ROADMAP A12)"
         )
     if cfg.enable_scan_to_map:
-        raise NotImplementedError("scan-to-map odometry is ported with ROADMAP A10")
+        raise NotImplementedError("scan-to-map odometry is not ported yet (ROADMAP "
+                                  "A10-scan-to-map: it needs voxel_downsample)")
 
 
 def _rot_angle(R) -> float:
@@ -101,6 +112,106 @@ def _inlier_fraction(src_xyz, src_mask, tgt_xyz, tgt_mask, T, max_dist):
     return torch.sum(inl.to(d2.dtype)) / torch.clamp(torch.sum(src_mask.to(d2.dtype)), min=1)
 
 
+def _cloud_from_packed(packed, count):
+    """PointCloud on the packed frame's device from its [x, y, z, intensity,
+    doppler] rows and the valid count (a device scalar): one upload instead
+    of five."""
+    cap = packed.shape[0]
+    return PointCloud(
+        xyz=packed[:, :3],
+        intensity=packed[:, 3],
+        doppler=packed[:, 4],
+        cluster=torch.zeros((cap,), dtype=packed.dtype, device=packed.device),
+        mask=torch.arange(cap, device=packed.device) < count,
+    )
+
+
+class FusedStepOut(NamedTuple):
+    host: torch.Tensor  # (25,) [T.ravel() (16), converged, error, v (3), sigma (3),
+    # zero_vel]; with ground segmentation, (30,) with [n_ground, plane (4)]
+    # appended; with the inlier fraction, one more entry at the end. The
+    # frame's one device->host pull.
+    cloud: PointCloud  # the built source cloud (on the device, reusable as
+    # the next keyframe target with no transfer)
+    iterations: int = 0  # outer LM iterations of the align (0 on the first frame)
+
+
+def _fused_ingest_core(packed, host_state, egocfg, gscfg, ppcfg, generator, hyp_idx):
+    """The cloud build and per-scan estimation shared by both fused steps.
+    With `ppcfg`, the full preprocessing chain of `preprocess_frame` (gates,
+    ego-velocity, dynamic-object removal, deskew, ground segmentation and
+    under-ground removal, DBSCAN ids); otherwise the ego-velocity alone,
+    plus ground segmentation with `gscfg`. Returns (cloud for registration,
+    ego, ground parts of the host vector)."""
+    cloud = _cloud_from_packed(packed, host_state[16])
+    dtype = packed.dtype
+    if ppcfg is not None:
+        pf, _ = preprocess_frame(cloud, host_state[20:23], ppcfg, generator=generator,
+                                 hyp_idx=hyp_idx)
+        parts = []
+        if ppcfg.enable_ground_seg:
+            parts = [torch.sum(pf.ground_mask).to(dtype)[None], pf.plane.to(dtype)]
+        return pf.cloud, pf.ego, parts
+    ego = estimate_ego_velocity(cloud, egocfg, generator=generator, hyp_idx=hyp_idx)
+    parts = []
+    if gscfg is not None:
+        seg = estimate_ground(cloud, gscfg)
+        parts = [torch.sum(seg.ground_mask).to(dtype)[None], seg.plane.to(dtype)]
+    return cloud, ego, parts
+
+
+def _ego_parts(ego, dtype):
+    return [ego.v.to(dtype), ego.sigma.to(dtype), ego.zero_velocity.to(dtype)[None]]
+
+
+def fused_frontend_step(packed, host_state, kf_cloud: PointCloud, cfg: OdometryConfig,
+                        gscfg: Optional[GroundSegConfig] = None,
+                        ppcfg: Optional[PreprocessConfig] = None,
+                        generator: Optional[torch.Generator] = None,
+                        hyp_idx=None) -> FusedStepOut:
+    """[full preprocessing ->] Doppler ego-velocity RANSAC -> cumulative
+    motion guess (`guess = prev_trans * egovel_cum`, `:458-462`) ->
+    scan-to-keyframe registration. `host_state` (on the packed frame's
+    device) = [prev_trans.ravel() (16), count, dt, seed, frame_idx, omega
+    (3)] (23,), optionally with the external MSF pose delta at [23:39]."""
+    dtype = packed.dtype
+    prev_trans = host_state[:16].reshape(4, 4)
+    cloud, ego, ground_parts = _fused_ingest_core(packed, host_state, cfg.egovel, gscfg, ppcfg,
+                                                  generator, hyp_idx)
+    eye = torch.eye(4, dtype=dtype, device=packed.device)
+    step_T = eye.clone()
+    step_T[:3, 3] = ego.v.to(dtype) * host_state[17]
+    # guard (`:364`): runaway cumulative motion falls back to identity
+    egovel_cum = torch.where(torch.linalg.norm(step_T[:3, 3]) <= cfg.max_egovel_cum, step_T, eye)
+    guess = prev_trans @ egovel_cum
+    if host_state.shape[0] >= 39:
+        guess = guess @ host_state[23:39].reshape(4, 4)
+    res = gicp_align(cloud, kf_cloud, init_T=guess, cfg=cfg.gicp._replace(mode=cfg.registration))
+    parts = [res.T.reshape(-1).to(dtype),
+             res.converged.to(dtype=dtype, device=packed.device)[None],
+             res.error.to(dtype)[None]] + _ego_parts(ego, dtype) + ground_parts
+    if cfg.compute_inlier_fraction:
+        frac = _inlier_fraction(cloud.xyz, cloud.mask, kf_cloud.xyz, kf_cloud.mask, res.T,
+                                cfg.inlier_max_correspondence_dist)
+        parts.append(frac.to(dtype)[None])
+    return FusedStepOut(host=torch.cat(parts), cloud=cloud, iterations=int(res.iterations))
+
+
+def fused_ingest(packed, host_state, egocfg: EgoVelConfig,
+                 gscfg: Optional[GroundSegConfig] = None,
+                 ppcfg: Optional[PreprocessConfig] = None,
+                 generator: Optional[torch.Generator] = None, hyp_idx=None) -> FusedStepOut:
+    """First-frame path: build (and preprocess) the cloud and estimate the
+    ego-velocity only (no registration target yet)."""
+    dtype = packed.dtype
+    cloud, ego, ground_parts = _fused_ingest_core(packed, host_state, egocfg, gscfg, ppcfg,
+                                                  generator, hyp_idx)
+    eye = torch.eye(4, dtype=dtype, device=packed.device).reshape(-1)
+    one = torch.ones(1, dtype=dtype, device=packed.device)
+    parts = [eye, one, torch.zeros_like(one)] + _ego_parts(ego, dtype) + ground_parts
+    return FusedStepOut(host=torch.cat(parts), cloud=cloud)
+
+
 class OdometryStatus(NamedTuple):
     """`ScanMatchingStatus.msg` (filled at `:666-703`)."""
 
@@ -132,6 +243,14 @@ class ScanMatchingOdometry:
     _msf_pose_after_update: Optional[tuple] = None
     _prev_frame_stamp: Optional[float] = None
     _last_radar_delta: np.ndarray = field(default_factory=lambda: np.eye(4))
+    # the full preprocessing chain, run inside `step_fused` when set
+    preprocess_cfg: Optional[PreprocessConfig] = None
+    # the fused step's ground fit of the last frame (`ground=True` or
+    # preprocessing with ground segmentation)
+    last_ground_count: int = 0
+    last_plane: Optional[np.ndarray] = None
+    last_cloud: Optional[PointCloud] = None
+    _frame_idx: int = -1
 
     def __post_init__(self):
         check_supported(self.cfg)
@@ -234,6 +353,125 @@ class ScanMatchingOdometry:
         init_T = torch.as_tensor(guess, device=source.xyz.device)
         return gicp_align(source, target, init_T=init_T, cfg=cfg)
 
+    def step_fused(self, stamp: float, packed: torch.Tensor, count: int, seed: int = 0,
+                   ground: bool = False, omega=None, generator: Optional[torch.Generator] = None,
+                   hyp_idx=None):
+        """Fused frontend step (see `fused_frontend_step`) on the padded
+        (capacity, 5) [x, y, z, intensity, doppler] frame `packed`, a tensor
+        on the device to run on (padding rows arbitrary). Returns (pose
+        (4, 4), ego velocity (3,)). The sanity gates and the keyframe refresh
+        of `step` run on the host on the pulled vector; the keyframe target
+        swap reuses the cloud built on the device. `ground=True` (or a
+        `preprocess_cfg` with ground segmentation) exposes the frame's
+        ground fit as `last_ground_count` / `last_plane` for the floor
+        constraint; `omega` is the latest gyro sample, for deskew.
+        `generator` draws the RANSAC hypotheses (`hyp_idx` passes them in);
+        `seed` fills the state vector's slot, as in the JAX package, whose
+        hypotheses it keys."""
+        if self.cfg.enable_scan_to_map:
+            raise NotImplementedError("scan-to-map is not fused (ROADMAP A10-scan-to-map)")
+        self._frame_idx += 1
+        state = np.zeros(39, dtype=str(packed.dtype).removeprefix("torch."))  # packed's dtype
+        state[:16] = self.prev_trans_s2s.ravel()
+        state[16] = count
+        state[17] = 0.0 if self.last_stamp is None else stamp - self.last_stamp
+        state[18] = seed
+        state[19] = self._frame_idx
+        if omega is not None:
+            state[20:23] = np.asarray(omega)  # latest gyro sample, for deskew
+        msf_delta, msf_label = self._msf_delta()
+        state[23:39] = msf_delta.ravel()
+        state_dev = torch.as_tensor(state, device=packed.device)
+
+        ppcfg = self.preprocess_cfg
+        gscfg = self.cfg.groundseg if (ground and ppcfg is None) else None
+        has_ground = gscfg is not None or (ppcfg is not None and ppcfg.enable_ground_seg)
+        if self.keyframe_cloud is None:
+            out = fused_ingest(packed, state_dev, self.cfg.egovel, gscfg, ppcfg, generator,
+                               hyp_idx)
+            host = out.host.cpu().numpy()
+            if has_ground:
+                self.last_ground_count = int(host[25])
+                self.last_plane = host[26:30].astype(np.float64)
+            self.keyframe_cloud = self.last_cloud = out.cloud
+            self.keyframe_stamp = self.last_stamp = stamp
+            return self.odom.copy(), host[18:21]
+
+        self._prev_frame_stamp = self.last_stamp
+        self.last_stamp = stamp
+        out = fused_frontend_step(packed, state_dev, self.keyframe_cloud, self.cfg, gscfg, ppcfg,
+                                  generator, hyp_idx)
+        self.last_cloud = out.cloud
+        host = out.host.cpu().numpy()  # the frame's one device->host pull
+        if has_ground:
+            self.last_ground_count = int(host[25])
+            self.last_plane = host[26:30].astype(np.float64)
+        T = host[:16].reshape(4, 4).astype(np.float64)
+        converged = host[16] > 0.5
+        v = host[18:21]
+        if not np.isfinite(v).all():
+            # degenerate scan (no gated Doppler returns): zero velocity keeps
+            # the motion-prediction fallback finite (`:427-430`)
+            v = np.zeros(3, host.dtype)
+
+        delta = np.linalg.inv(self.prev_trans_s2s) @ T
+        dx = float(np.linalg.norm(delta[:3, 3]))
+        da = _rot_angle(delta[:3, :3])
+        step_T = np.eye(4)
+        step_T[:3, 3] = v * state[17]
+        if np.linalg.norm(step_T[:3, 3]) > self.cfg.max_egovel_cum:
+            step_T = np.eye(4)
+        pred = self.prev_trans_s2s @ step_T
+        diff = np.linalg.inv(pred) @ T
+        ddx = float(np.linalg.norm(diff[:3, 3]))
+        dda = _rot_angle(diff[:3, :3])
+        used_prediction = False
+        # NaN-safe: a non-finite T must not pass the threshold checks
+        if (
+            not converged
+            or not np.isfinite(T).all()
+            or dx > self.cfg.max_acceptable_trans
+            or da > self.cfg.max_acceptable_angle
+            or ddx > self.cfg.max_diff_trans
+            or dda > self.cfg.max_diff_angle
+        ):
+            fb = self._imu_fallback_delta(stamp, step_T[:3, 3])
+            T = self.prev_trans_s2s @ fb if fb is not None else pred
+            used_prediction = True
+        self._last_radar_delta = delta
+
+        self.statuses.append(
+            OdometryStatus(
+                converged=bool(converged),
+                matching_error=float(host[17]),
+                inlier_fraction=(float(host[-1]) if self.cfg.compute_inlier_fraction
+                                 else float("nan")),
+                relative_pose=delta,
+                prediction_error=diff,
+                used_prediction=used_prediction,
+                prediction_label=msf_label,
+                iterations=out.iterations,
+            )
+        )
+        self.prev_trans_s2s = T
+        self.odom = self.keyframe_pose @ T
+        self._refresh_keyframe(T, stamp, out.cloud)
+        return self.odom.copy(), v
+
+    def _refresh_keyframe(self, T, stamp, cloud):
+        """Keyframe refresh on the delta gates (`:578-600`)."""
+        if (
+            float(np.linalg.norm(T[:3, 3])) > self.cfg.keyframe_delta_trans
+            or _rot_angle(T[:3, :3]) > self.cfg.keyframe_delta_angle
+            or stamp - self.keyframe_stamp > self.cfg.keyframe_delta_time
+        ):
+            if self.cfg.enable_imu_fusion:
+                self.odom = self._transform_update(self.odom, stamp)
+            self.keyframe_pose = self.odom.copy()
+            self.keyframe_stamp = stamp
+            self.prev_trans_s2s = np.eye(4)
+            self.keyframe_cloud = cloud
+
     def step(self, stamp: float, cloud: PointCloud, ego_vel: np.ndarray) -> np.ndarray:
         """Process one frame; returns the 4x4 odometry pose (map<-body)."""
         if self.keyframe_cloud is None:
@@ -307,17 +545,5 @@ class ScanMatchingOdometry:
         self.prev_trans_s2s = T
         self.egovel_cum = np.eye(4)
         self.odom = self.keyframe_pose @ T
-
-        # keyframe refresh (`:578-600`)
-        if (
-            float(np.linalg.norm(T[:3, 3])) > self.cfg.keyframe_delta_trans
-            or _rot_angle(T[:3, :3]) > self.cfg.keyframe_delta_angle
-            or stamp - self.keyframe_stamp > self.cfg.keyframe_delta_time
-        ):
-            if self.cfg.enable_imu_fusion:
-                self.odom = self._transform_update(self.odom, stamp)
-            self.keyframe_pose = self.odom.copy()
-            self.keyframe_stamp = stamp
-            self.prev_trans_s2s = np.eye(4)
-            self.keyframe_cloud = cloud
+        self._refresh_keyframe(T, stamp, cloud)
         return self.odom.copy()

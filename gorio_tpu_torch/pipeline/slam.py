@@ -1,16 +1,16 @@
 """Radar graph-SLAM back end.
 
 Port of `RadarGraphSLAM` from `gorio_tpu/pipeline/slam.py`
-(`RadarGraphSlamNodelet`): keyframe selection, LPM velocity preintegration
-between keyframes, Scan-Context loop closure verified by batched APDGICP,
-the pose graph (odometry between-factors with fitness-based information,
-preintegration between-factors, Huber loop factors, GPS priors) and its LM
-solve: dense up to `solve_dense_max_dim` stacked dimensions, block-sparse
-direct (tridiagonal + Woodbury) above. The graph is built on the host and
-solved on `device`, the card unless the caller asks for the CPU.
-
-Not ported yet, and refused with NotImplementedError rather than ignored:
-UGPM preintegration (ROADMAP A11) and the floor constraint (A10).
+(`RadarGraphSlamNodelet`): keyframe selection, LPM or UGPM velocity
+preintegration between keyframes, Scan-Context loop closure verified by
+batched APDGICP, the pose graph (odometry between-factors with
+fitness-based information, preintegration between-factors, Huber loop
+factors, GPS priors, and with the floor constraint one world floor plane
+vertex observed by every keyframe with an accepted ground fit) and its LM
+solve: dense up to `solve_dense_max_dim` stacked pose dimensions,
+block-sparse direct (tridiagonal + Woodbury, with a Schur step for the
+plane) above. The graph is built on the host and solved on `device`, the
+card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -23,11 +23,12 @@ import torch
 
 from ..core.pointcloud import PointCloud
 from ..graph.graph import PoseGraph
-from ..graph.solver import SolveConfig, optimize_graph
-from ..graph.sparse import optimize_graph_sparse
+from ..graph.solver import SolveConfig, optimize_graph, optimize_graph_with_planes
+from ..graph.sparse import optimize_graph_sparse, optimize_graph_with_planes_sparse
 from ..loopclosure.information import InformationConfig, calc_information_matrix
 from ..loopclosure.loop_detector import LoopConfig, LoopDetector
 from ..preintegration.lpm import lpm_preintegrate
+from ..preintegration.ugpm import UGPMConfig, ugpm_preintegrate
 from .keyframes import KeyFrame, KeyframeUpdater
 
 
@@ -36,11 +37,11 @@ class SLAMConfig(NamedTuple):
     keyframe_delta_angle: float = 0.15
     max_keyframes_per_update: int = 10
     enable_preintegration: bool = True
-    preint_mode: str = "lpm"  # "lpm" here; "ugpm" is ROADMAP A11
+    preint_mode: str = "lpm"  # "lpm" | "ugpm"
     preint_grid_n: int = 256
     preint_window_samples: int = 256  # fixed gyro-sample count per window
     preint_vel_samples: int = 64
-    ugpm: Optional[dict] = None  # UGPMConfig fields, for the UGPM port (ROADMAP A11)
+    ugpm: UGPMConfig = UGPMConfig()
     gyr_var: float = 1e-4
     vel_var: float = 1e-3
     enable_loop_closure: bool = True
@@ -58,7 +59,9 @@ class SLAMConfig(NamedTuple):
     gps_robust_delta: float = np.inf
     anchor_info: float = 1e6
     solve: SolveConfig = SolveConfig(max_iterations=30)
-    enable_floor_constraint: bool = False  # ROADMAP A10
+    # floor constraint: keyframe ground-plane observations tied to one world
+    # floor plane vertex (EdgeSE3Plane; keyframe floor_coeffs)
+    enable_floor_constraint: bool = False
     floor_normal_info: float = 100.0
     floor_distance_info: float = 100.0
     floor_robust_delta: float = 1.0
@@ -70,14 +73,6 @@ class SLAMConfig(NamedTuple):
     pad_poses_pow2: bool = True
     # above this stacked dimension the solve is block-sparse (graph/sparse.py)
     solve_dense_max_dim: int = 768
-
-
-def check_supported(cfg: SLAMConfig):
-    """Raise for the parts of the config that need an unported module."""
-    if cfg.preint_mode != "lpm":
-        raise NotImplementedError(f"preint_mode={cfg.preint_mode!r} is ported with ROADMAP A11")
-    if cfg.enable_floor_constraint:
-        raise NotImplementedError("the floor constraint is ported with ROADMAP A10")
 
 
 class GPSMeasurement(NamedTuple):
@@ -101,13 +96,17 @@ class RadarGraphSLAM:
     gps_queue: list = field(default_factory=list)
     loops: list = field(default_factory=list)
     trans_odom2map: np.ndarray = field(default_factory=lambda: np.eye(4))
-    # graph solves by solver, counted where `optimize` picks one
-    solver_counts: dict = field(default_factory=lambda: {"dense": 0, "sparse": 0})
+    # graph solves by solver, counted where `optimize` picks one (the joint
+    # pose + floor-plane solves apart)
+    solver_counts: dict = field(default_factory=lambda: {
+        "dense": 0, "sparse": 0, "dense_planes": 0, "sparse_planes": 0})
+    floor_plane: Optional[np.ndarray] = None  # optimized world floor [n, d]
     _last_gps_edge_index: int = -(10**9)
     _loop_checked_upto: int = 0
 
     def __post_init__(self):
-        check_supported(self.cfg)
+        if self.cfg.preint_mode not in ("lpm", "ugpm"):
+            raise ValueError(f"preint_mode={self.cfg.preint_mode!r}: 'lpm' or 'ugpm'")
         self.device = torch.device(self.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"RadarGraphSLAM(device={self.device}): no CUDA device is "
@@ -166,7 +165,7 @@ class RadarGraphSLAM:
         return True
 
     def _preintegrate(self, t0: float, t1: float):
-        """LPM preintegration over [t0, t1] (`preIntegrationTransform`,
+        """LPM or UGPM preintegration over [t0, t1] (`preIntegrationTransform`,
         `radar_graph_slam_nodelet.cpp:363-533`): the window start is clamped
         to at most 2 s before the end, the streams are read from 0.2 s
         before it, in fixed sample budgets padded by repeating the last
@@ -202,11 +201,12 @@ class RadarGraphSLAM:
         def dev(a):
             return torch.as_tensor(np.asarray(a, np.float64), device=self.device)
 
-        meas = lpm_preintegrate(
-            dev(gt), dev(gd), dev(vt), dev(vd), float(t0), dev([t1]),
-            self.cfg.gyr_var, self.cfg.vel_var, grid_n=self.cfg.preint_grid_n,
-            with_jacobians=False,
-        )
+        args = (dev(gt), dev(gd), dev(vt), dev(vd), float(t0), dev([t1]), self.cfg.gyr_var,
+                self.cfg.vel_var)
+        if self.cfg.preint_mode == "ugpm":
+            meas = ugpm_preintegrate(*args, self.cfg.ugpm, with_jacobians=False)
+        else:
+            meas = lpm_preintegrate(*args, grid_n=self.cfg.preint_grid_n, with_jacobians=False)
         out = torch.cat([meas.delta_R[0].reshape(-1), meas.delta_p[0], meas.cov[0].reshape(-1)])
         out = out.cpu().numpy()  # one device->host read per keyframe
         T = np.eye(4)
@@ -335,6 +335,26 @@ class RadarGraphSLAM:
                 robust_delta=self.cfg.gps_robust_delta,
             )
 
+        # floor constraint: the keyframes' ground-plane observations tied to
+        # one world floor plane, seeded from the first floored keyframe and
+        # carried between optimizations
+        floored = ([kf for kf in kfs if kf.floor_coeffs is not None]
+                   if self.cfg.enable_floor_constraint else [])
+        if floored:
+            if self.floor_plane is not None:
+                plane_w = self.floor_plane
+            else:
+                T0 = est(floored[0])
+                n_b, d_b = floored[0].floor_coeffs[:3], floored[0].floor_coeffs[3]
+                n_w = T0[:3, :3] @ n_b
+                plane_w = np.concatenate([n_w, [d_b - n_w @ T0[:3, 3]]])
+            j = g.add_plane(plane_w)
+            info3 = np.diag([self.cfg.floor_normal_info, self.cfg.floor_normal_info,
+                             self.cfg.floor_distance_info])
+            for kf in floored:
+                g.add_se3_plane(kf.index - base, j, kf.floor_coeffs, info3,
+                                robust_delta=self.cfg.floor_robust_delta)
+
         if self.cfg.pad_poses_pow2:
             K_real = len(g.poses)
             K_pad = max(4, 1 << (K_real - 1).bit_length())
@@ -345,16 +365,22 @@ class RadarGraphSLAM:
         # above the dense cutoff, the block-sparse direct solver: exact
         # tridiagonal + Woodbury, its low-rank capacity sized from the live
         # loop count in power-of-two buckets (the JAX package's rule)
-        if len(g.poses) * 6 > self.cfg.solve_dense_max_dim and solve_cfg.solver in (
-                "dense", "direct"):
+        use_sparse = len(g.poses) * 6 > self.cfg.solve_dense_max_dim
+        if use_sparse and solve_cfg.solver in ("dense", "direct"):
             n_loop = max(len(self.loops), 1)
             lcap = max(8, 1 << (n_loop - 1).bit_length())
-            res = optimize_graph_sparse(
-                poses0, graph, solve_cfg._replace(solver="direct", loop_capacity=lcap))
-            self.solver_counts["sparse"] += 1
+            solve_cfg = solve_cfg._replace(solver="direct", loop_capacity=lcap)
+        kind = "sparse" if use_sparse else "dense"
+        if floored:
+            planes0, plane_graph = g.freeze_planes(device=self.device)
+            solve = optimize_graph_with_planes_sparse if use_sparse else optimize_graph_with_planes
+            res = solve(poses0, planes0, graph, plane_graph, solve_cfg)
+            self.floor_plane = res.planes[0].cpu().numpy()
+            kind += "_planes"
         else:
-            res = optimize_graph(poses0, graph, solve_cfg)
-            self.solver_counts["dense"] += 1
+            solve = optimize_graph_sparse if use_sparse else optimize_graph
+            res = solve(poses0, graph, solve_cfg)
+        self.solver_counts[kind] += 1
         opt = res.poses.cpu().numpy()[: len(kfs)]  # drop the padding dummies
         for k, kf in enumerate(kfs):
             kf.optimized_pose = opt[k]

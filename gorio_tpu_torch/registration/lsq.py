@@ -69,7 +69,10 @@ def lm_optimize(
         nu = 2.0
         accepted = conv_rej = delta_conv = False
         for _ in range(cfg.lm_max_iterations):
-            d = torch.linalg.solve(H + lam * eye6, -b)
+            # a singular system (no correspondence: H = 0, so lam = 0) gives a
+            # non-finite step, as XLA's LU does, which the accept test rejects
+            d, info = torch.linalg.solve_ex(H + lam * eye6, -b)
+            d = torch.where(info == 0, d, torch.full_like(d, float("nan")))
             delta_T = lie.se3_exp_split(d)
             T_new = delta_T @ T
             yi = compute_error(T_new, aux)

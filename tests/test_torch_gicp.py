@@ -109,3 +109,28 @@ def test_fitness_score_matches_jax(pair):
     tf, tn = tg.fitness_score(tsrc, ttgt, torch.as_tensor(T))
     assert int(tn) == int(jn)
     np.testing.assert_allclose(float(tf), float(jf), rtol=1e-10)
+
+
+def test_lm_without_correspondences_fails_like_jax():
+    """A linearization with no correspondence (H = 0, b = 0: every point
+    masked or out of range) makes the damped system singular. The JAX
+    package's LU gives a non-finite step that every inner iteration rejects,
+    so the align stops after one outer iteration at its initial transform,
+    not converged; the port does the same instead of raising."""
+    import functools
+
+    from gorio_tpu.registration import lsq as jl
+    from gorio_tpu_torch.registration import lsq as tl
+
+    T0 = np.eye(4)
+    T0[:3, 3] = [0.5, -0.2, 0.1]
+
+    want = jl.lm_optimize(lambda T: (jnp.zeros(()), jnp.zeros((6, 6)), jnp.zeros(6), None),
+                          lambda T, aux: jnp.zeros(()), jnp.asarray(T0))
+    z = functools.partial(torch.zeros, dtype=torch.float64)
+    got = tl.lm_optimize(lambda T: (z(()), z((6, 6)), z(6), None), lambda T, aux: z(()),
+                         torch.as_tensor(T0))
+    assert not bool(want.converged) and not bool(got.converged)
+    assert int(got.iterations) == int(want.iterations) == 1
+    np.testing.assert_array_equal(got.T.numpy(), np.asarray(want.T))
+    np.testing.assert_array_equal(got.T.numpy(), T0)

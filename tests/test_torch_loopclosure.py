@@ -169,7 +169,7 @@ def test_descriptor_images_equal_jax(descs, tmp_path):
 
 
 def test_db_grows_past_capacity(circuit):
-    det = tl.LoopDetector(capacity=4)
+    det = tl.LoopDetector(capacity=4, device="cpu")
     for c in circuit[1][:9]:
         det.add_keyframe(c)
     assert det.db.count == 9 and det.db.descs.shape[0] == 16
@@ -305,7 +305,7 @@ def test_detect_batch_matches_jax(circuit):
     pairs, the same verified transforms, the same gate counts."""
     clouds, tclouds, odom, accum = circuit
     jdet = jl.LoopDetector(cfg=jl.LoopConfig(**LOOP), capacity=16)
-    tdet = tl.LoopDetector(cfg=tl.LoopConfig(**LOOP), capacity=16)
+    tdet = tl.LoopDetector(cfg=tl.LoopConfig(**LOOP), capacity=16, device="cpu")
     for c, tc in zip(clouds, tclouds):
         jdet.add_keyframe(c)
         tdet.add_keyframe(tc)
@@ -329,7 +329,7 @@ def test_detect_matches_jax(circuit):
     the same loop (or none) for a revisiting keyframe and one that is not."""
     clouds, tclouds, odom, accum = circuit
     jdet = jl.LoopDetector(cfg=jl.LoopConfig(**LOOP), capacity=64)
-    tdet = tl.LoopDetector(cfg=tl.LoopConfig(**LOOP), capacity=64)
+    tdet = tl.LoopDetector(cfg=tl.LoopConfig(**LOOP), capacity=64, device="cpu")
     for c, tc in zip(clouds, tclouds):
         jdet.add_keyframe(c)
         tdet.add_keyframe(tc)
@@ -342,3 +342,15 @@ def test_detect_matches_jax(circuit):
             np.testing.assert_allclose(got.T_rel, np.asarray(want.T_rel), atol=1e-6)
             np.testing.assert_allclose(got.fitness, want.fitness, rtol=1e-6)
     assert tdet.gate_counts == jdet.gate_counts and len(tdet.loops) == len(jdet.loops) == 1
+
+
+def test_loop_detector_defaults_to_the_card():
+    """`LoopDetector()` puts its Scan-Context DB on CUDA; without a card it
+    raises instead of falling back to the CPU, as `RadarGraphSLAM()` does."""
+    assert tl.LoopDetector.device == torch.device("cuda")
+    if torch.cuda.is_available():
+        assert tl.LoopDetector().db.descs.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tl.LoopDetector()
+    assert tl.LoopDetector(device="cpu").db.descs.device == torch.device("cpu")

@@ -113,12 +113,25 @@ def test_slam_backend_matches_jax(frames):
         np.testing.assert_allclose(b, a, atol=1e-8)
 
 
-def test_unported_slam_modes_raise():
-    for kw, item in ((dict(preint_mode="ugpm"), "A11"),
-                     (dict(enable_loop_closure=False, preint_mode="ugpm"), "A11"),
-                     (dict(enable_loop_closure=False, enable_floor_constraint=True), "A10")):
-        with pytest.raises(NotImplementedError, match=item):
-            ts.RadarGraphSLAM(ts.SLAMConfig(**kw))
+def test_unported_slam_modes_raise(frames):
+    """UGPM and the floor constraint run now (`test_torch_frontend.py`); the
+    joint pose + floor-plane solve still refuses `solver="cg"` (ROADMAP
+    A7-sparse-cg) when the back end reaches it, and an unknown
+    preintegration mode is refused up front."""
+    from gorio_tpu_torch.graph.solver import SolveConfig
+
+    with pytest.raises(ValueError, match="preint_mode"):
+        ts.RadarGraphSLAM(ts.SLAMConfig(preint_mode="imu"), device="cpu")
+    slam = ts.RadarGraphSLAM(ts.SLAMConfig(
+        enable_loop_closure=False, enable_preintegration=False, enable_floor_constraint=True,
+        keyframe_delta_trans=0.0, solve=SolveConfig(solver="cg")), device="cpu")
+    for stamp, cloud, _, _, p in frames[0][:3]:
+        pose = np.eye(4)
+        pose[:3, 3] = p
+        slam.add_frame(stamp, cloud_from_numpy(cloud), pose,
+                       floor_coeffs=np.array([0.0, 0.0, 1.0, 1.8]))
+    with pytest.raises(NotImplementedError, match="A7-sparse-cg"):
+        slam.optimize()
 
 
 def test_slam_defaults_to_the_card():

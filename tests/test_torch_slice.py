@@ -1,11 +1,13 @@
 """The slice as a whole: `python -m gorio_tpu_torch.cli simulate / slam /
 evaluate` against `python -m gorio_tpu.cli` on the CPU, on two small
 sequences (capacity 512, 3000 landmarks): 4 s at 4 Hz with loops off, and
-a 20 s circuit at 2.5 Hz, 1.6 laps, with loop closure on, optimized every
-10 keyframes over a 30-keyframe window and the dense solver capped at 96
-stacked dimensions, so that it revisits its start, accepts a loop and runs
-the block-sparse solver on both of its paths (block-Thomas at 32 padded
-poses, SPIKE at 64).
+again with the paper's configuration (`--fused --preprocess --floor
+--preint ugpm`: the fused preprocessing frontend, UGPM and the floor
+plane); and a 20 s circuit at 2.5 Hz, 1.6 laps, with loop closure on,
+optimized every 10 keyframes over a 30-keyframe window and the dense
+solver capped at 96 stacked dimensions, so that it revisits its start,
+accepts a loop and runs the block-sparse solver on both of its paths
+(block-Thomas at 32 padded poses, SPIKE at 64).
 
 End-to-end tolerance: the port draws its RANSAC hypotheses from a torch
 generator, not `jax.random`, so the ego-velocity motion guesses differ by
@@ -52,6 +54,44 @@ def runs(tmp_path_factory):
                               str(d / "torch.tum"), "--no-loops", "--capacity", "512",
                               "--device", "cpu", "--timing-out", str(d / "timing.json")])
     return d, slam, odo
+
+
+FULL = ["--fused", "--preprocess", "--floor", "--preint", "ugpm"]
+
+
+@pytest.fixture(scope="module")
+def full_runs(runs):
+    """Both CLIs with the paper's four flags on the 4 s sequence. The JAX
+    CLI's reader hands it the frames as float64, as the port's CLI uploads
+    them: on its float32 frames the JAX package's fused LM ends millimetres
+    from its own float64 run. Its back end is caught on construction for
+    the floor plane."""
+    import gorio_tpu.io.native as jnative
+    import gorio_tpu.pipeline.slam as jslam
+
+    d = runs[0]
+    made = []
+
+    class Caught(jslam.RadarGraphSLAM):
+        def __post_init__(self):
+            super().__post_init__()
+            made.append(self)
+
+    class Float64Frames(jnative.NativePipelineDataset):
+        def __next__(self):
+            stamp, n, packed = super().__next__()
+            return stamp, n, np.asarray(packed, np.float64)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("GORIO_NO_COMPILE_CACHE", "1")
+        mp.setattr(jslam, "RadarGraphSLAM", Caught)
+        mp.setattr(jnative, "NativePipelineDataset", Float64Frames)
+        jax_cli(["slam", "--dataset", str(d / "seq"), "--output", str(d / "jax_full.tum"),
+                 "--capacity", "512", *FULL, "--timing-out", str(d / "jax_full.json")])
+    slam, odo, _ = torch_cli(["slam", "--dataset", str(d / "seq"), "--output",
+                              str(d / "torch_full.tum"), "--capacity", "512", *FULL,
+                              "--device", "cpu", "--timing-out", str(d / "torch_full.json")])
+    return d, made[0], slam, odo
 
 
 @pytest.fixture(scope="module")
@@ -143,11 +183,45 @@ def test_loops_match_jax(loop_runs):
     assert abs(et - ej) <= 0.2 * ej + 1e-3, (et, ej)
 
 
+def test_full_configuration_matches_jax(full_runs):
+    """`--fused --preprocess --floor --preint ugpm`, both CLIs on float64
+    frames: the same keyframes and loops (none on this drive), the
+    trajectory within 5 mm / 5 mrad, the floor plane within 1e-2 rad /
+    0.05 m, the ATE within 20% + 1 mm; the fused stages timed under the JAX
+    package's names, the floor plane solved jointly with the poses."""
+    d, jslam, tslam, odo = full_runs
+    jt = json.loads((d / "jax_full.json").read_text())
+    tt = json.loads((d / "torch_full.json").read_text())
+    assert tt["keyframe_stamps"] == jt["keyframe_stamps"]
+    assert tt["loops"] == jt["loops"] == []
+    assert set(tt["stage_median_ms"]) == set(jt["stage_median_ms"]) == {
+        "frontend_fused", "backend", "final_optimize"}
+    assert tt["solver_counts"]["dense_planes"] >= 1 and tt["solver_counts"]["dense"] == 0
+    assert odo.preprocess_cfg is not None and odo.last_ground_count > 0
+    assert str(odo.last_cloud.xyz.dtype) == "torch.float64"  # the frames go up as float64
+    assert sum(kf.floor_coeffs is not None for kf in tslam.keyframes) == \
+        sum(kf.floor_coeffs is not None for kf in jslam.keyframes) > 0
+    n_t, n_j = tslam.floor_plane[:3], np.asarray(jslam.floor_plane)[:3]
+    assert np.arccos(np.clip(n_t @ n_j, -1.0, 1.0)) < 1e-2
+    assert abs(tslam.floor_plane[3] - float(jslam.floor_plane[3])) < 0.05
+    np.testing.assert_allclose(tt["floor_plane"], tslam.floor_plane.tolist())
+    _, jp = load_tum(d / "jax_full.tum")
+    _, tp = load_tum(d / "torch_full.tum")
+    dpos = np.linalg.norm(tp[:, :3, 3] - jp[:, :3, 3], axis=1)
+    dR = np.einsum("nji,njk->nik", jp[:, :3, :3], tp[:, :3, :3])
+    dang = np.arccos(np.clip((np.trace(dR, axis1=1, axis2=2) - 1) / 2, -1, 1))
+    assert dpos.max() < 5e-3 and dang.max() < 5e-3, (dpos.max(), dang.max())
+    gt = str(d / "seq" / "groundtruth.tum")
+    ej = torch_cli(["evaluate", str(d / "jax_full.tum"), gt])["ate_rmse_m"]
+    et = torch_cli(["evaluate", str(d / "torch_full.tum"), gt])["ate_rmse_m"]
+    assert abs(et - ej) <= 0.2 * ej + 1e-3, (et, ej)
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--preprocess"], "A10"),
-    (["--fused"], "A10"),
-    (["--floor"], "A10"),
-    (["--preint", "ugpm"], "A11"),
+    ([*FULL, "--registration", "ndt"], "A12"),
+    ([*FULL, "--dump", "g.g2o"], "A13"),
+    ([*FULL, "--map", "m.npz"], "A13"),
+    ([*FULL, "--config", "c.yaml"], "A13"),
     (["--registration", "ndt"], "A12"),
     (["--dump", "g.g2o"], "A13"),
     (["--map", "m.npz"], "A13"),
@@ -167,11 +241,12 @@ def test_cuda_device_without_a_card_raises(runs):
         torch_cli(["slam", "--dataset", str(runs[0] / "seq"), "--no-loops"])
 
 
-def test_port_runs_without_jax(runs, tmp_path):
+def test_port_runs_without_jax(runs, full_runs, tmp_path):
     """A process in which `import jax`, `import jaxlib` and `import
     gorio_tpu` (and every submodule) fail runs the port's whole slice, loop
-    closure on: simulate, slam, evaluate — with the same result as this
-    process with loops off (the 4 s sequence never passes the 50 m gate).
+    closure on: simulate, slam (the default path, and the paper's four
+    flags), evaluate — with the same results as this process (with loops
+    off: the 4 s sequence never passes the 50 m gate).
     (An import hook blocks them: a `sys.modules['jax'] = None` entry trips
     scipy's array-API helper, which looks the module up by name.)"""
     d = runs[0]
@@ -188,15 +263,20 @@ def test_port_runs_without_jax(runs, tmp_path):
         " '--capacity', '512', '--device', 'cpu'])\n"
         f"r = main(['evaluate', {str(tmp_path / 'e.tum')!r}, 'seq/groundtruth.tum'])\n"
         "assert r['ate_rmse_m'] < 0.05\n"
+        f"main(['slam', '--dataset', 'seq', '--output', {str(tmp_path / 'f.tum')!r},"
+        f" '--capacity', '512', '--device', 'cpu', *{FULL!r}])\n"
         "assert not [m for m, v in sys.modules.items() if v is not None\n"
         "            and m.split('.')[0] in ('jax', 'jaxlib', 'gorio_tpu')]\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=400)
     assert out.returncode == 0, out.stderr[-3000:]
     np.testing.assert_allclose(load_tum(tmp_path / "e.tum")[1], load_tum(d / "torch.tum")[1],
                                atol=1e-7)
+    # the fused path draws its hypotheses from the same seeded generator
+    np.testing.assert_allclose(load_tum(tmp_path / "f.tum")[1],
+                               load_tum(d / "torch_full.tum")[1], atol=1e-7)
 
 
 def _imported_modules(path):
@@ -224,7 +304,7 @@ def test_port_imports_nothing_of_the_jax_package(path):
 def test_configs_carry_over_from_jax():
     """`convert.config_from_dict` maps the JAX CLI's configs (nested ones
     included: loop closure, Scan Context, the solver) onto the port's;
-    configs of unported modules stay dicts."""
+    the config of the unported NDT stays a dict."""
     from gorio_tpu.loopclosure.loop_detector import LoopConfig as JLoop
     from gorio_tpu.loopclosure.scancontext import ScanContextConfig as JSC
     from gorio_tpu_torch.graph.solver import SolveConfig
@@ -235,6 +315,7 @@ def test_configs_carry_over_from_jax():
     from gorio_tpu_torch.convert import config_from_dict
     from gorio_tpu_torch.pipeline.odometry import OdometryConfig
     from gorio_tpu_torch.pipeline.slam import SLAMConfig
+    from gorio_tpu_torch.preintegration.ugpm import UGPMConfig
 
     jslam = JSlam(enable_loop_closure=False, gyr_var=2e-5,
                   loop=JLoop(accum_distance_thresh=20.0, sc_candidates=1))
@@ -242,11 +323,12 @@ def test_configs_carry_over_from_jax():
     assert slam_cfg.gyr_var == 2e-5 and slam_cfg.solve.max_iterations == 30
     assert slam_cfg.info == config_from_dict(type(slam_cfg.info), jslam.info._asdict())
     assert slam_cfg.loop == LoopConfig(accum_distance_thresh=20.0, sc_candidates=1)
-    assert isinstance(slam_cfg.solve, SolveConfig) and isinstance(slam_cfg.ugpm, dict)
+    assert isinstance(slam_cfg.solve, SolveConfig) and slam_cfg.ugpm == UGPMConfig()
     assert config_from_dict(ScanContextConfig, JSC(num_candidates=5)._asdict()) == \
         ScanContextConfig(num_candidates=5)
     odo = config_from_dict(OdometryConfig, JOdo(registration="gicp")._asdict())
     assert odo.registration == "gicp" and odo.gicp.lm.max_iterations == 64
-    assert odo == OdometryConfig(registration="gicp", ndt=odo.ndt, groundseg=odo.groundseg)
+    assert odo == OdometryConfig(registration="gicp", ndt=odo.ndt)
+    assert isinstance(odo.ndt, dict)
     with pytest.raises(ValueError, match="no fields"):
         config_from_dict(SLAMConfig, {"not_a_field": 1})

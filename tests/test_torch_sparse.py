@@ -177,5 +177,7 @@ def test_unported_sparse_options_raise():
     _, _, tp, tg = _graph(16, 1, seed=0)
     with pytest.raises(NotImplementedError, match="A7-sparse-cg"):
         ts.optimize_graph_sparse(tp, tg, tsol.SolveConfig(solver="cg"))
-    with pytest.raises(NotImplementedError, match="A10"):
-        ts.optimize_graph_with_planes_sparse(tp, None, tg, None)
+    # the joint pose + plane solver runs (`test_torch_planes.py`); its CG
+    # branch is refused the same way
+    with pytest.raises(NotImplementedError, match="A7-sparse-cg"):
+        ts.optimize_graph_with_planes_sparse(tp, None, tg, None, tsol.SolveConfig(solver="cg"))
