@@ -28,7 +28,12 @@ Phases, one line each (more for the tables):
                version's, the library's (`torch.cdist`, masked `min`, and a
                gather for `nn1_select`) and the bound.
                The same checks and timing row at the loop-verification call:
-               B = 32 pairs of N = M = 2048 (the library: batched `cdist`).
+               B = 32 pairs of N = M = 2048 (the library: batched `cdist`),
+               at scan-to-submap's (N = 2048, M = 8192, f64), and at the
+               align pair's (N = M = 131072, f32 query and ref, the
+               synthetic pair's masks and padding rows; the library there:
+               `cdist` + `min` over blocks of 8192 queries, as the whole
+               distance matrix, 64 GiB, does not fit).
   4. slice   — the port's CLI, its default command: `simulate` (seed 0, 20 s
                at 5 Hz, capacity 2048, 9000 landmarks: 98 frames), `slam
                --device cuda` (loop closure on), `evaluate`. Fails unless the
@@ -76,6 +81,37 @@ Phases, one line each (more for the tables):
   Phases 5-7 print the stage medians and means, every graph solve's time per
   LM iteration, UGPM's ms per keyframe (the card synchronised around each
   call), the launches, and the card's name and power limit on the same line.
+  8. ndt-slice — the 98-frame sequence with `slam --registration ndt`, then
+               `slam --fused --registration ndt` (NDT P2D DIRECT7 against the
+               keyframe's voxel map, built on every align). Fails unless each
+               gives the JAX record's keyframes (+-2%), 0 loops, ATE <= 0.05
+               m, `nn1` launched (frames - 1) + (keyframes - 1) times (the
+               inlier fraction and the edge information) and `nn1_select`
+               never (NDT replaced APDGICP, no loop was verified), and a
+               voxel map built from a keyframe cloud lives on the card. Two
+               builds of the same keyframe's NDT map, VGICP map and voxel
+               downsample must agree to the bit. Prints the ATE beside the
+               JAX record, the stage medians and means, NDT's outer
+               iterations per frame and one map build's time.
+  9. scan-to-map — `ScanMatchingOdometry(OdometryConfig(enable_scan_to_map=
+               True, registration=r))` for r in ndt and apdgicp over the 98
+               frames (uploaded as float64, ego velocity as the CLI's
+               unfused path), through the Python API
+               (`pipeline/odometry_replay.odometry_run`): fails unless the
+               odometry trajectory's ATE is <= 1.25 x the JAX package's
+               record of the same loop + 0.02 m, the submap lives on the
+               card, and the apdgicp run launched `nn1_select` with M = 8192
+               refs. Prints the submap rebuild's ms per keyframe.
+  10. align  — `bench.py`'s synthetic pair (69,000 points, a known z-rotation
+               of 0.02 rad and [0.3, 0.1, 0] m) written as PCD files and
+               aligned by `python -m gorio_tpu_torch.cli align` with its
+               eight default methods (0.1 m leaf, capacity 131072): fails
+               unless each recovers the known transform within 0.05 m and
+               1 deg, except NDT_CUDA_D2D, whose JAX CPU run misses them and
+               which is held to that run's errors plus the same margins.
+               Then NDT DIRECT7 per-align ms on the same pair with the maps
+               prebuilt, single-resolution and coarse-to-fine (`bench.py`'s
+               protocol).
 The two sequences are simulated in child processes started at the beginning,
 beside the build and the kernel phase. Then the kernels' JSON line, the card
 line, and the last line `{"ok": true, "device": {...}}`. Any failure exits
@@ -103,6 +139,12 @@ PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: FP32 FLOP/s off the tensor c
 KEYFRAMES, KEYFRAME_TOL, ATE_MAX = 80, 4, 0.05
 VERIFY_B = 32  # loop verification: 2 seeds x up to 16 candidate pairs per batch
 VERIFY = f"loop verification: B={VERIFY_B} pairs of (2048, 3), the main path's types"
+SUBMAP_M = 8192  # OdometryConfig.submap_capacity
+SUBMAP = f"scan-to-submap: (2048, 3) f64 query, ({SUBMAP_M}, 3) f64 ref, f64 P=11 payload"
+ALIGN_CAP = 131072  # the align pair's power-of-two capacity
+ALIGN = (f"align pair: ({ALIGN_CAP}, 3) f32 query and ref, the synthetic pair's masks, f32 "
+         f"P=11 payload")
+ALIGN_LIBRARY_BLOCK = 8192  # queries per `cdist` call at the align pair
 CIRCUIT_SIM = ["--duration", "75", "--rate", "5", "--seed", "22", "--circuit", "--laps", "2",
                "--dynamic", "2"]
 # The JAX package's record of the same commands (`python -m gorio_tpu.cli`,
@@ -148,6 +190,27 @@ FULL_CIRCUIT_JAX32 = {
     "floor": [-0.057263361084994975, 0.028297373638347605, 0.9979579981754849,
               2.226405724383945]}
 FLOOR_NORMAL_RAD, FLOOR_OFFSET_M = 1e-2, 0.05
+# The JAX package's record of `slam --registration ndt [--fused]` on the
+# 98-frame sequence (`python -m gorio_tpu.cli`, CPU, JAX_ENABLE_X64=1, its
+# reader's frames handed over as float64; unfused and fused alike)
+NDT_SLICE_JAX = {"keyframes": 77, "loops": 0, "ate_m": 0.0134656, "rte_m": 0.0223001}
+# scan-to-submap odometry over the 98 frames (`tests/jax_records.py
+# scan-to-map`, JAX CPU f64, float64 frames): the odometry trajectory's ATE
+SCAN_TO_MAP_JAX = {"ndt": 0.7752972399712745, "apdgicp": 0.7671944008819945}
+# the align pair (`tests/jax_records.py align`, the JAX CLI's float32 run on
+# a CPU): each method's (translation m, rotation deg) error against the
+# known transform. NDT_CUDA_D2D misses the 0.05 m / 1 deg tolerances there,
+# so the port is held to its errors plus those margins
+ALIGN_TRANS_M, ALIGN_ROT_DEG = 0.05, 1.0  # `tests/test_reference_pcd.py`
+ALIGN_JAX = {"ICP": (5.214236404787842e-05, 0.0),
+             "GICP": (0.00019326367688587788, 0.01396459938639004),
+             "FAST_GICP": (0.00019326367688587788, 0.01396459938639004),
+             "FAST_APDGICP": (0.000365593811171593, 0.0),
+             "FAST_VGICP": (0.001579685718105856, 0.0),
+             "FAST_VGICP_CUDA": (0.001579685718105856, 0.0),
+             "NDT_OMP": (0.027744391381214824, 0.014163451642024599),
+             "NDT_CUDA_D2D": (0.25514880550804603, 0.0)}
+ALIGN_JAX_MISSES = ("NDT_CUDA_D2D",)
 CARD = ""  # the card's `nvidia-smi` name and power limit, set by main()
 
 
@@ -322,6 +385,8 @@ def kernel_phase(K):
     m[1] = False  # every ref of the second batch masked
     cases["all refs masked in one batch"] = (q, r, m, p)
     cases[VERIFY] = inputs(VERIFY_B, MAIN_N, MAIN_N, 0.1)
+    cases[SUBMAP] = tuple(t[0] for t in inputs(1, MAIN_N, SUBMAP_M, 0.1, f64, f64, f64))
+    cases[ALIGN] = align_inputs(g)
 
     errs = {}
     for label, (q, r, m, p) in cases.items():
@@ -359,13 +424,41 @@ def kernel_phase(K):
     q, r, m, p = cases[VERIFY]
     fns = _timed_fns(K, q, r, m, p)
     stats_b = {name: timing_row(name, fns[name], q, r, m, p, VERIFY) for name in fns}
-    return errs, stats, stats_b, S_main
+    q, r, m, p = cases[SUBMAP]
+    fns = _timed_fns(K, q, r, m, p)
+    stats_s = {name: timing_row(name, fns[name], q, r, m, p, SUBMAP) for name in fns}
+    q, r, m, p = cases[ALIGN]
+    fns = _timed_fns(K, q, r, m, p, library_block=ALIGN_LIBRARY_BLOCK)
+    stats_a = {name: timing_row(name, fns[name], q, r, m, p, ALIGN, launches=3, warmup=1)
+               for name in fns}
+    return errs, stats, {"verify_batch": (stats_b, VERIFY), "submap": (stats_s, SUBMAP),
+                         "align": (stats_a, ALIGN)}, S_main
 
 
-def _timed_fns(K, q, r, m, p):
+def align_inputs(g):
+    """The align path's call at its capacity: the synthetic pair after the
+    CLI's 0.1 m leaf, padded to ALIGN_CAP (source as query, target as ref,
+    f32), and the GICP payload's layout: the target's xyz, six covariance
+    columns, cluster and mask."""
+    import torch
+
+    from gorio_tpu_torch.core.pointcloud import make_cloud
+    from gorio_tpu_torch.io.pcd import voxel_centroid_downsample
+
+    dev = torch.device("cuda")
+    a, b, _, _ = synth_pair()
+    src, tgt = (make_cloud(torch.as_tensor(voxel_centroid_downsample(x, res=0.1)),
+                           capacity=ALIGN_CAP, device=dev) for x in (a, b))
+    cov6 = torch.randn(ALIGN_CAP, 6, generator=g, device=dev)
+    payload = torch.cat([tgt.xyz, cov6, tgt.cluster[:, None], tgt.mask.float()[:, None]], -1)
+    return src.xyz, tgt.xyz, tgt.mask, payload
+
+
+def _timed_fns(K, q, r, m, p, library_block=None):
     """(kernel, plain, library) callables of both kernels on one input. The
     library: `torch.cdist` on the float32 inputs, squared, plus the mask
-    bias, `min`, and for `nn1_select` a gather of the payload."""
+    bias, `min`, and for `nn1_select` a gather of the payload; with
+    `library_block`, one such call per block of that many queries."""
     import torch
 
     f32 = torch.float32
@@ -373,10 +466,13 @@ def _timed_fns(K, q, r, m, p):
     bias = torch.where(m, 0.0, 1e12).to(f32)
     if bias.dim() == 2:
         bias = bias[:, None]
+    block = library_block or qf.shape[-2]
 
     def library_nn1():
-        d2, idx = (torch.cdist(qf, rf).square_() + bias).min(dim=-1)
-        return idx, d2
+        parts = [(torch.cdist(qf[..., s:s + block, :], rf).square_() + bias).min(dim=-1)
+                 for s in range(0, qf.shape[-2], block)]
+        d2 = torch.cat([d for d, _ in parts], dim=-1)
+        return torch.cat([i for _, i in parts], dim=-1), d2
 
     def library_select():
         idx, d2 = library_nn1()
@@ -393,19 +489,21 @@ def _timed_fns(K, q, r, m, p):
     }
 
 
-def timing_row(name, fns, q, r, m, p, label):
-    """A kernel's time per launch (events around 100), alone (profiler, mean
-    of 20), the plain version's and the library's per launch, and the
-    bound."""
+def timing_row(name, fns, q, r, m, p, label, launches=100, warmup=10):
+    """A kernel's time per launch (events around `launches`), alone
+    (profiler, mean of 20), the plain version's and the library's per
+    launch, and the bound."""
     kernel, plain, library = fns
     acts = device_kernels(kernel, 20)
     kernel_us = statistics.mean(t for n, t in acts if "nn1_kernel" in n)
     want = plain()
-    st = {"ms": per_launch_ms(kernel), "plain_ms": per_launch_ms(plain),
-          "library_ms": per_launch_ms(library), "kernel_ms": kernel_us / 1e3}
+    st = {"ms": per_launch_ms(kernel, launches, warmup),
+          "plain_ms": per_launch_ms(plain, launches, warmup),
+          "library_ms": per_launch_ms(library, launches, warmup), "kernel_ms": kernel_us / 1e3}
     st["bound_ms"], st["bound_by"] = bound(q, r, m, p if name == "nn1_select" else None,
                                            want[2] if name == "nn1_select" else None)
-    print(f"[kernels] {name} at {label}: {st['ms']:.5f} ms per launch (events around 100), "
+    print(f"[kernels] {name} at {label}: {st['ms']:.5f} ms per launch (events around "
+          f"{launches}), "
           f"kernel alone {st['kernel_ms']:.5f} ms (profiler, mean of 20); plain "
           f"{st['plain_ms']:.5f} ms, library (cdist + min"
           f"{' + gather' if name == 'nn1_select' else ''}) {st['library_ms']:.5f} ms; bound "
@@ -746,6 +844,206 @@ def full_circuit_phase(K, seq, tmp):
     return launches
 
 
+def ndt_slice_phase(K, seq, tmp):
+    """`slam --registration ndt`, unfused then fused, on the 98 frames."""
+    import numpy as np
+    import torch
+
+    from gorio_tpu_torch.core.pointcloud import voxel_downsample
+    from gorio_tpu_torch.pipeline.odometry import OdometryConfig
+    from gorio_tpu_torch.registration.ndt import NDTConfig, build_voxel_map
+    from gorio_tpu_torch.registration.vgicp import VGICPConfig, build_gaussian_voxel_map
+
+    n_frames = len(list(seq.glob("*.grf")))
+    launches = {}
+    for what, flags in (("ndt-slice", []), ("ndt-fused-slice", ["--fused"])):
+        slam, odo, timer, counts, batched, wall, result = run_slam(
+            K, seq, tmp / f"{what}.tum", [*flags, "--registration", "ndt"])
+        launches[what] = counts
+        n_kf = len(slam.keyframes)
+        iters = [st.iterations for st in odo.statuses]
+        report(what, n_frames, slam, timer, counts, batched, wall, result, sum(iters), 0)
+        print(f"[{what}] {CARD}: NDT outer iterations per frame mean {statistics.mean(iters):.2f}, "
+              f"median {statistics.median(iters)}, max {max(iters)}; matching error median "
+              f"{statistics.median(st.matching_error for st in odo.statuses):.3f}; ATE "
+              f"{result['ate_rmse_m']:.6f} m (JAX {NDT_SLICE_JAX['ate_m']} m), RTE "
+              f"{result['rte_m']:.6f} m (JAX {NDT_SLICE_JAX['rte_m']} m)", flush=True)
+        want_nn1 = (n_frames - 1) + (n_kf - 1)
+        if counts["nn1"] != want_nn1 or counts["nn1_select"] != 0:
+            fail(f"{what}: launches {counts}, expected nn1 {want_nn1} (frames - 1 + keyframes - 1)"
+                 f" and nn1_select 0")
+        if abs(n_kf - NDT_SLICE_JAX["keyframes"]) > 0.02 * NDT_SLICE_JAX["keyframes"]:
+            fail(f"{what}: {n_kf} keyframes, the JAX record {NDT_SLICE_JAX['keyframes']} +- 2%")
+        if len(slam.loops) != NDT_SLICE_JAX["loops"]:
+            fail(f"{what}: {len(slam.loops)} loops, the JAX record {NDT_SLICE_JAX['loops']}")
+        if not result["ate_rmse_m"] <= ATE_MAX:
+            fail(f"{what}: ATE {result['ate_rmse_m']} m > {ATE_MAX} m")
+        if not slam.loop_detector.gate_counts or not np.isfinite(slam.trajectory()[1]).all():
+            fail(f"{what}: loop detection never ran or the trajectory is not finite")
+    cloud = slam.keyframes[-1].cloud
+    vmap = build_voxel_map(cloud, NDTConfig())
+    devices = {str(t.device) for t in vmap}
+    if devices != {"cuda:0"}:
+        fail(f"ndt-slice: a keyframe's voxel map lives on {sorted(devices)}")
+    # the segment sums run in a fixed order: a rebuild agrees to the bit
+    for build in (lambda: build_voxel_map(cloud, NDTConfig()),
+                  lambda: build_gaussian_voxel_map(cloud, VGICPConfig()),
+                  lambda: voxel_downsample(cloud, OdometryConfig().submap_resolution)):
+        first, again = build(), build()
+        diff = [f for f, a, b in zip(first._fields, first, again) if not torch.equal(a, b)]
+        if diff:
+            fail(f"ndt-slice: two builds of {type(first).__name__} differ in {diff}")
+    print("[ndt-slice] two builds of the keyframe's NDT map, VGICP map and voxel downsample "
+          "agree to the bit", flush=True)
+    ms = call_ms(lambda: build_voxel_map(cloud, NDTConfig()), repeats=20, warmup=3)
+    print(f"[ndt-slice] {CARD}: the voxel map of a {cloud.capacity}-point keyframe lives on "
+          f"{sorted(devices)}; build_voxel_map {ms:.3f} ms (median of 20, table "
+          f"{vmap.table.numel() * 4 / 2**20:.1f} MiB)", flush=True)
+    torch.cuda.synchronize()
+    return launches
+
+
+def scan_to_map_phase(K, seq):
+    """Scan-to-submap odometry with NDT and with APDGICP."""
+    import gorio_tpu_torch.registration.gicp as gicp_mod
+    from gorio_tpu_torch.io.tum import ate_rmse, load_tum
+    from gorio_tpu_torch.pipeline.odometry import OdometryConfig
+    from gorio_tpu_torch.pipeline.odometry_replay import odometry_run
+
+    gs, gp = load_tum(seq / "groundtruth.tum")
+    launches = {}
+    select = gicp_mod.nn1_select
+    ref_sizes = set()
+
+    def recording_select(query, ref, *args, **kwargs):
+        ref_sizes.add(ref.shape[-2])
+        return select(query, ref, *args, **kwargs)
+
+    gicp_mod.nn1_select = recording_select
+    try:
+        for reg in ("ndt", "apdgicp"):
+            what = f"scan-to-map-{reg}"
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            odo, stamps, poses, rebuild_s = odometry_run(
+                seq, OdometryConfig(enable_scan_to_map=True, registration=reg))
+            wall = time.perf_counter() - t0
+            launches[what] = dict(K.launch_counts)
+            ate = ate_rmse(stamps, poses, gs, gp)
+            rec = SCAN_TO_MAP_JAX[reg]
+            limit = 1.25 * rec + 0.02
+            kf = odo.keyframe_cloud
+            iters = [st.iterations for st in odo.statuses]
+            ms = [1e3 * t for t in rebuild_s]
+            print(f"[{what}] {CARD}: frames {len(stamps)}, keyframes {len(odo._submap_frames)}, "
+                  f"fallbacks {sum(st.used_prediction for st in odo.statuses)}, submap "
+                  f"{int(kf.mask.sum())} of {kf.capacity} on {kf.xyz.device}, outer iterations "
+                  f"per frame mean {statistics.mean(iters):.2f}; rebuild {len(ms)} keyframes, "
+                  f"{statistics.median(ms):.2f} ms median / {statistics.mean(ms):.2f} ms mean; "
+                  f"launches {launches[what]}, wall {wall:.2f} s ({len(stamps) / wall:.2f} "
+                  f"frames/s); ATE {ate:.6f} m (JAX {rec:.6f} m, limit {limit:.6f} m)",
+                  flush=True)
+            if kf.capacity != SUBMAP_M or kf.xyz.device.type != "cuda":
+                fail(f"{what}: the submap is {kf.capacity} points on {kf.xyz.device}")
+            if not ate <= limit:
+                fail(f"{what}: ATE {ate} m > {limit} m (1.25 x the JAX record + 0.02 m)")
+    finally:
+        gicp_mod.nn1_select = select
+    if SUBMAP_M not in ref_sizes or launches["scan-to-map-apdgicp"]["nn1_select"] == 0:
+        fail(f"scan-to-map-apdgicp: nn1_select ran at ref sizes {sorted(ref_sizes)}, "
+             f"not at M = {SUBMAP_M}")
+    # for scale, not held: the same loop against the last keyframe alone
+    _, stamps, poses, _ = odometry_run(seq, OdometryConfig())
+    print(f"[scan-to-map] beside it, scan-to-keyframe APDGICP odometry over the same frames "
+          f"(not held): ATE {ate_rmse(stamps, poses, gs, gp):.6f} m", flush=True)
+    return launches
+
+
+def synth_pair(n=69000, seed=0):
+    """`bench.py`'s synthetic pair at the benchmark scans' scale (~70k
+    points, ~100 m scene): b = T a + 2 cm noise with T a z-rotation of 0.02
+    rad and [0.3, 0.1, 0] m. Returns (a, b, intensity, T)."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.default_rng(seed)
+    n_ground = n // 2
+    gx = rng.uniform(-50, 50, size=(n_ground, 2))
+    ground = np.concatenate([gx, -1.8 + 0.05 * rng.normal(size=(n_ground, 1))], axis=1)
+    centers = rng.uniform(-50, 50, size=(60, 3))
+    centers[:, 2] = np.abs(centers[:, 2]) * 0.2
+    assign = rng.integers(0, 60, size=n - n_ground)
+    local = rng.normal(size=(n - n_ground, 3)) * np.array([4.0, 0.2, 2.0])
+    a = np.concatenate([ground, centers[assign] + local]).astype(np.float32)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = Rotation.from_euler("z", 0.02).as_matrix()
+    T[:3, 3] = [0.3, 0.1, 0.0]
+    b = (a @ T[:3, :3].T + T[:3, 3]) + rng.normal(scale=0.02, size=a.shape).astype(np.float32)
+    inten = (10 + 20 * rng.random(n)).astype(np.float32)
+    return a, b, inten, T.astype(np.float64)
+
+
+def align_phase(K, tmp):
+    """The align CLI on the synthetic pair, then the bench's NDT readings."""
+    import numpy as np
+    import torch
+
+    from gorio_tpu_torch.cli import main as cli
+    from gorio_tpu_torch.core.pointcloud import make_cloud
+    from gorio_tpu_torch.io.pcd import read_pcd, voxel_centroid_downsample, write_pcd
+    from gorio_tpu_torch.registration.ndt import (
+        NDTConfig, build_voxel_map, coarse_cfg, ndt_align_multires, ndt_align_with_map)
+
+    a, b, inten, T_true = synth_pair()
+    write_pcd(tmp / "tgt.pcd", b, inten)
+    write_pcd(tmp / "src.pcd", a, inten)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = cli(["align", str(tmp / "tgt.pcd"), str(tmp / "src.pcd"), "--repeat", "3",
+                "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = dict(K.launch_counts)
+    bad = []
+    for row in rows:
+        d = np.linalg.inv(row["T"].double().cpu().numpy()) @ T_true
+        te = float(np.linalg.norm(d[:3, 3]))
+        re = float(np.degrees(np.arccos(np.clip((np.trace(d[:3, :3]) - 1) / 2, -1, 1))))
+        jax = ALIGN_JAX[row["method"]]
+        t_max, r_max = ALIGN_TRANS_M, ALIGN_ROT_DEG
+        if row["method"] in ALIGN_JAX_MISSES:
+            t_max, r_max = jax[0] + ALIGN_TRANS_M, jax[1] + ALIGN_ROT_DEG
+        print(f"[align] {CARD}: {row['method']:<16} fitness {row['fitness']:.6f}, first "
+              f"{row['first_ms']:.2f} ms, warm {row['warm_ms']:.2f} ms, {row['iterations']} "
+              f"iterations; error {te:.6f} m / {re:.6f} deg (JAX CPU {jax}; limits "
+              f"{t_max:.4f} m / {r_max:.2f} deg)", flush=True)
+        if not (te <= t_max and re <= r_max):
+            bad.append(row["method"])
+    print(f"[align] launches {launches}, wall {wall:.2f} s", flush=True)
+    if bad:
+        fail(f"align: {bad} miss the known transform")
+
+    # bench.py's headline protocol: target a, source b, 0.1 m leaf, float32,
+    # DIRECT7 at 1.0 m with 32768 voxels, maps prebuilt, from the identity
+    dev = torch.device("cuda")
+    tgt_d, src_d = (voxel_centroid_downsample(read_pcd(tmp / f)[0], 0.1)
+                    for f in ("src.pcd", "tgt.pcd"))
+    cap = 1 << int(np.ceil(np.log2(max(len(tgt_d), len(src_d)))))
+    target, source = (make_cloud(torch.as_tensor(x), capacity=cap, device=dev)
+                      for x in (tgt_d, src_d))
+    cfg = NDTConfig(resolution=1.0, neighborhood="direct7", voxel_capacity=32768)
+    vmap_t, vmap_c = build_voxel_map(target, cfg), build_voxel_map(target, coarse_cfg(cfg))
+    eye = torch.eye(4, device=dev)
+    for name, fn in (("single-resolution", lambda: ndt_align_with_map(source, vmap_t, eye, cfg)),
+                     ("coarse-to-fine", lambda: ndt_align_multires(source, vmap_c, vmap_t, eye,
+                                                                    cfg))):
+        res = fn()
+        ms = call_ms(fn, repeats=5, warmup=1)
+        print(f"[align] {CARD}: NDT DIRECT7 {name} (bench.py's protocol, capacity {cap}): "
+              f"{ms:.2f} ms per align (median of 5), {int(res.iterations)} outer iterations, "
+              f"score {float(res.error):.2f}", flush=True)
+    return launches
+
+
 def main():
     if not (ROOT / "gorio_tpu_torch" / "ops" / "csrc" / "nn1.cu").is_file():
         fail(f"no gorio_tpu_torch package beside {Path(__file__).name}: run from the repository")
@@ -797,22 +1095,26 @@ def run_phases(tmp, sims):
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"[build] {line.strip()}", flush=True)
 
-    errs, stats, stats_b, S_main = kernel_phase(K)
+    errs, stats, shapes, S_main = kernel_phase(K)
     wait_for(sims["slice"], "slice")
-    launches = {"slice": slice_phase(K, tmp / "slice", tmp)}
-    launches["full-slice"] = full_slice_phase(K, tmp / "slice", tmp)
+    launches = {"slice": slice_phase(K, tmp / "slice", tmp),
+                "full-slice": full_slice_phase(K, tmp / "slice", tmp)}
     wait_for(sims["circuit"], "circuit")
     launches["circuit"] = circuit_phase(K, tmp / "circuit", tmp)
     launches["full-circuit"] = full_circuit_phase(K, tmp / "circuit", tmp)
+    launches.update(ndt_slice_phase(K, tmp / "slice", tmp))
+    launches.update(scan_to_map_phase(K, tmp / "slice"))
+    launches["align"] = align_phase(K, tmp)
 
     replaces = {"nn1": "gorio_tpu/ops/nn_pallas.py:34",
                 "nn1_select": "gorio_tpu/ops/nn_pallas.py:125"}
     kernels = [
         {"name": name, "route": "cuda", "source": "gorio_tpu_torch/ops/csrc/nn1.cu",
-         "replaces": replaces[name], "launches": launches["circuit"][name],
+         "replaces": replaces[name],
+         "launches": launches["circuit"][name],
          "launches_by_path": {path: counts[name] for path, counts in launches.items()},
          "max_abs_err": errs[name], **stats[name], "cluster": S_main, "shape": MAIN,
-         "verify_batch": {**stats_b[name], "shape": VERIFY}}
+         **{key: {**st[name], "shape": shape} for key, (st, shape) in shapes.items()}}
         for name in ("nn1", "nn1_select")
     ]
     return kernels

@@ -3,15 +3,17 @@
   simulate  — generate a synthetic sequence to .grf files
   slam      — run odometry + the pose-graph back-end over a .grf sequence
   evaluate  — ATE/RTE of a TUM trajectory vs ground truth
+  align     — align two PCD scans with every registration method
 
 Usage: python -m gorio_tpu_torch.cli <command> [args]
 
 `slam` accepts every flag of `python -m gorio_tpu.cli slam` and, like it,
-runs loop closure unless `--no-loops`; `--fused`, `--preprocess`, `--floor`
-and `--preint ugpm` run as there. The flags that need a module the port
-does not have yet (`--config`, `--registration ndt`, `--dump`, `--map`)
-raise NotImplementedError naming the ROADMAP item that ports it. `--device`
-picks the torch device (default cuda); there is no fallback to the CPU.
+runs loop closure unless `--no-loops`; `--fused`, `--preprocess`, `--floor`,
+`--preint ugpm` and `--registration {apdgicp,gicp,ndt}` run as there. The
+flags that need a module the port does not have yet (`--config`, `--dump`,
+`--map`) raise NotImplementedError naming the ROADMAP item that ports it.
+`--device` (slam, align) picks the torch device (default cuda); there is no
+fallback to the CPU.
 """
 
 from __future__ import annotations
@@ -93,7 +95,6 @@ def _check_slam_flags(args):
     """Refuse the flags whose modules are not ported yet."""
     refused = [
         (args.config, "--config (the typed config tree)", "A13"),
-        (args.registration == "ndt", "--registration ndt", "A12"),
         (args.dump, "--dump", "A13"),
         (args.map, "--map", "A13"),
     ]
@@ -287,6 +288,70 @@ def cmd_evaluate(args):
     return result
 
 
+ALIGN_METHODS = ("ICP", "GICP", "FAST_GICP", "FAST_APDGICP", "FAST_VGICP", "FAST_VGICP_CUDA",
+                 "NDT_OMP", "NDT_CUDA_D2D")
+
+
+def cmd_align(args):
+    """Align two PCD scans with each method and print fitness and timing
+    (`ndt_omp/apps/align.cpp`, `fast_apdgicp/src/align.cpp`): both scans
+    voxel-downsampled at `--leaf` on the host, padded to the next power of
+    two, aligned from the identity. Returns one dict per method: name,
+    fitness, first and warm ms (the card synchronised around each), the
+    estimate T (4, 4) and the outer iterations."""
+    import time
+
+    from .core.pointcloud import make_cloud
+    from .io.pcd import read_pcd, voxel_centroid_downsample
+    from .registration import select_registration
+    from .registration.gicp import fitness_score
+
+    device = _device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def load(path):
+        xyz, _ = read_pcd(path)
+        xyz = xyz[np.all(np.isfinite(xyz), axis=1)]
+        return voxel_centroid_downsample(xyz, res=args.leaf)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    tgt, src = load(args.target), load(args.source)
+    cap = 1 << int(np.ceil(np.log2(max(len(src), len(tgt)))))
+    target = make_cloud(torch.as_tensor(tgt), capacity=cap, device=device)
+    source = make_cloud(torch.as_tensor(src), capacity=cap, device=device)
+    print(f"target: {len(tgt)} pts, source: {len(src)} pts (capacity {cap})")
+    methods = args.methods.split(",") if args.methods else ALIGN_METHODS
+    rows = []
+    for name in methods:
+        kwargs = dict(resolution=args.ndt_resolution) if "NDT" in name else {}
+        align = select_registration(name, **kwargs)
+        sync()
+        t0 = time.perf_counter()
+        res = align(source, target)
+        sync()
+        first = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        for _ in range(args.repeat):
+            res = align(source, target)
+        sync()
+        warm = (time.perf_counter() - t0) * 1e3 / max(args.repeat, 1)
+        rows.append({"method": name, "first_ms": first, "warm_ms": warm, "T": res.T,
+                     "iterations": int(res.iterations)})
+    print(f"{'method':<16} {'fitness':>9} {'first ms':>10} {'warm ms':>9}")
+    for row in rows:  # fitness after all timing, as the JAX CLI does
+        row["fitness"] = float(fitness_score(source, target, row["T"], max_range=float("inf"))[0])
+        print(f"{row['method']:<16} {row['fitness']:>9.6f} {row['first_ms']:>10.2f} "
+              f"{row['warm_ms']:>9.2f}")
+    if args.print_transform:
+        print("final transform (last method):")
+        print(np.array_str(rows[-1]["T"].cpu().numpy(), precision=5, suppress_small=True))
+    return rows
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="gorio_tpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -340,6 +405,17 @@ def main(argv=None):
     s.add_argument("estimate")
     s.add_argument("groundtruth")
     s.set_defaults(fn=cmd_evaluate)
+
+    s = sub.add_parser("align")
+    s.add_argument("target")
+    s.add_argument("source")
+    s.add_argument("--leaf", type=float, default=0.1, help="voxel downsample leaf (m)")
+    s.add_argument("--ndt-resolution", type=float, default=2.0)
+    s.add_argument("--methods", default=None, help="comma-separated subset")
+    s.add_argument("--repeat", type=int, default=3)
+    s.add_argument("--print-transform", action="store_true")
+    s.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    s.set_defaults(fn=cmd_align)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -12,6 +12,8 @@ import numpy as np
 import torch
 
 from .core.pointcloud import PointCloud
+from .registration.ndt import VoxelGaussianMap
+from .registration.vgicp import GaussianVoxelMap
 from .loopclosure.scancontext import ScanContextDB
 from .graph.factors import (
     BetweenFactors,
@@ -76,9 +78,9 @@ def config_from_dict(cls, data):
     """A JAX config (NamedTuple or dict, nested configs included) -> the
     port's config class `cls` (`SLAMConfig`, `LoopConfig`,
     `ScanContextConfig`, `SolveConfig`, `UGPMConfig`, `PreprocessConfig`,
-    `GroundSegConfig`, `DBSCANConfig`, ...). Nested configs of ported
-    modules are converted recursively; the config of a module the port does
-    not have yet (NDT) is kept as a plain dict. Unknown field names raise."""
+    `GroundSegConfig`, `DBSCANConfig`, `OdometryConfig`, `NDTConfig`,
+    `VGICPConfig`, ...), nested configs converted recursively. Unknown
+    field names raise."""
     d = _fields(data)
     unknown = set(d) - set(cls._fields)
     if unknown:
@@ -88,13 +90,20 @@ def config_from_dict(cls, data):
         default = cls._field_defaults.get(k)
         if isinstance(default, tuple) and hasattr(default, "_fields"):
             kw[k] = config_from_dict(type(default), v)
-        elif hasattr(v, "_asdict"):
-            kw[k] = dict(v._asdict())
         elif isinstance(default, tuple) and isinstance(v, list):
             kw[k] = tuple(v)  # tuple fields (ring / sector counts) read back from JSON
         else:
             kw[k] = v
     return cls(**kw)
+
+
+def voxel_map_from_numpy(vmap, device=None):
+    """A JAX `VoxelGaussianMap` (NDT) or `GaussianVoxelMap` (VGICP), or a
+    dict of its arrays, -> the port's, told apart by their fields; keys,
+    tables and table dims stay int32."""
+    d = _fields(vmap)
+    cls = VoxelGaussianMap if "packed" in d else GaussianVoxelMap
+    return cls(**{k: torch.as_tensor(np.array(d[k]), device=device) for k in cls._fields})
 
 
 def scancontext_db_from_numpy(db, device=None) -> ScanContextDB:

@@ -1,9 +1,10 @@
 """Fixed-shape point-cloud container.
 
-Port of `PointCloud`, `make_cloud`, `filter_cloud` and `distance_filter` from
-`gorio_tpu/core/pointcloud.py`: a NamedTuple of padded tensors plus a
-validity mask, so every cloud of a sequence has the same shape and every op
-is mask-aware.
+Port of `PointCloud`, `make_cloud`, `filter_cloud`, `compact_cloud`,
+`distance_filter` and the voxel helpers (`voxel_key`, `masked_min_corner`,
+`voxel_downsample`) from `gorio_tpu/core/pointcloud.py`: a NamedTuple of
+padded tensors plus a validity mask, so every cloud of a sequence has the
+same shape and every op is mask-aware.
 """
 
 from __future__ import annotations
@@ -98,3 +99,102 @@ def distance_filter(cloud: PointCloud, min_dist, max_dist, min_z=-1e30, max_z=1e
     d = torch.linalg.norm(cloud.xyz, dim=-1)
     z = cloud.xyz[:, 2]
     return filter_cloud(cloud, (d > min_dist) & (d < max_dist) & (z > min_z) & (z < max_z))
+
+
+def compact_cloud(cloud: PointCloud) -> PointCloud:
+    """Move valid points to the front (stable), padding at the back."""
+    order = torch.argsort((~cloud.mask).to(torch.int8), stable=True)
+    return PointCloud(*(x[order] for x in cloud))
+
+
+VOXEL_BITS = 10  # 1024 cells per axis; keys fit int32
+VOXEL_SENTINEL = 2**30  # the key of padding rows: above every real key
+
+
+def pack_voxel_key(ijk):
+    """int32 key of integer voxel coordinates (..., 3), each in [0, 1024)."""
+    return (ijk[..., 0] << (2 * VOXEL_BITS)) | (ijk[..., 1] << VOXEL_BITS) | ijk[..., 2]
+
+
+def voxel_key(xyz, resolution, origin):
+    """int32 voxel key per point: 10 bits per axis relative to `origin`
+    ((3,), usually the masked min corner); out-of-range cells clamp to the
+    boundary voxel."""
+    ijk = torch.floor((xyz - origin) / resolution).to(torch.int32)
+    return pack_voxel_key(torch.clamp(ijk, 0, (1 << VOXEL_BITS) - 1))
+
+
+def masked_min_corner(xyz, mask, pad=1.0):
+    """Min corner of the valid points (static-shape reduction)."""
+    big = torch.full_like(xyz, 1e9)
+    return torch.amin(torch.where(mask[:, None], xyz, big), dim=0) - pad
+
+
+def segment_runs(key):
+    """Stable sort of int32 voxel keys (padding = `VOXEL_SENTINEL`) and the
+    runs of equal keys: (order, sorted keys, segment ids, bounds). A run's
+    segment id counts from 0 in key order (`jnp.argsort` is stable, so ties
+    keep their row order as in the JAX package). `bounds` (n + 1,) holds
+    the first sorted row of each id, clamped to the first padding row, so
+    that in `segment_sum` the padding's run, and every id past the last
+    run, is empty."""
+    order = torch.argsort(key, stable=True)
+    key_s = key[order]
+    is_head = torch.ones_like(key_s, dtype=torch.bool)
+    is_head[1:] = key_s[1:] != key_s[:-1]
+    seg = torch.cumsum(is_head.to(torch.int64), 0) - 1
+    ids = torch.arange(key.shape[0] + 1, device=key.device)
+    first_pad = torch.searchsorted(key_s, torch.full((1,), VOXEL_SENTINEL, dtype=key_s.dtype,
+                                                     device=key.device))
+    return order, key_s, seg, torch.minimum(torch.searchsorted(seg, ids), first_pad)
+
+
+def segment_sum(x, bounds):
+    """`jax.ops.segment_sum` over the leading axis of rows sorted by segment,
+    each segment the rows [bounds[i], bounds[i + 1]) (`segment_runs`). A
+    segmented reduction, not atomics: the card sums in a fixed order, so
+    repeated runs agree to the bit."""
+    return torch.segment_reduce(x, "sum", offsets=bounds, axis=0, unsafe=True)
+
+
+def segment_reduce(x, seg, num_segments, reduce, fill):
+    """`jax.ops.segment_{max,min}` ("amax" / "amin") over a 1-D `x`; empty
+    segments hold `fill`."""
+    out = torch.full((num_segments,), fill, dtype=x.dtype, device=x.device)
+    return out.scatter_reduce_(0, seg, x, reduce, include_self=True)
+
+
+def voxel_downsample(cloud: PointCloud, resolution, capacity=None):
+    """Voxel-grid centroid downsampling with a static output shape
+    (`pcl::VoxelGrid`, `map_cloud_generator.cpp:41-49`): sort by voxel key,
+    mean per run of equal keys; intensity is the run's max, doppler its
+    mean, cluster its max. Valid voxels come first, in key order."""
+    n = cloud.capacity
+    if capacity is None:
+        capacity = n
+    origin = masked_min_corner(cloud.xyz, cloud.mask)
+    key = torch.where(cloud.mask, voxel_key(cloud.xyz, resolution, origin),
+                      torch.full_like(cloud.mask, VOXEL_SENTINEL, dtype=torch.int32))
+    order, _, seg, bounds = segment_runs(key)
+    xyz_s, mask_s = cloud.xyz[order], cloud.mask[order]
+    w = mask_s.to(xyz_s.dtype)
+    ninf = torch.full_like(w, -torch.inf)
+    sums = segment_sum(xyz_s * w[:, None], bounds)
+    cnts = segment_sum(w, bounds)
+    inten_m = segment_reduce(torch.where(mask_s, cloud.intensity[order], ninf), seg, n, "amax",
+                             -torch.inf)
+    dop_sum = segment_sum(cloud.doppler[order] * w, bounds)
+    clus_first = segment_reduce(torch.where(mask_s, cloud.cluster[order], ninf), seg, n, "amax",
+                                -torch.inf)
+    valid = cnts > 0
+    centroid = sums / torch.clamp(cnts, min=1.0)[:, None]
+    out = PointCloud(
+        xyz=torch.where(valid[:, None], centroid, torch.full_like(centroid, PAD_COORD)),
+        intensity=torch.where(valid, inten_m, torch.zeros_like(inten_m)),
+        doppler=dop_sum / torch.clamp(cnts, min=1.0),
+        cluster=torch.where(valid, clus_first, torch.full_like(clus_first, -1.0)),
+        mask=valid,
+    )
+    if capacity != n:
+        out = PointCloud(*(x[:capacity] for x in out))
+    return out

@@ -11,13 +11,18 @@ in float64 numpy.
 `step_fused` is the fused frontend (`fused_frontend_step`): one upload of
 the packed frame and one of a small state vector, the cloud built on the
 device, [the full preprocessing chain ->] ego-velocity -> motion guess ->
-APDGICP -> inlier fraction, and one pull of a (25/30/31,) host vector, the
+registration -> inlier fraction, and one pull of a (25/30/31,) host vector, the
 JAX package's layout. Where the JAX program is one jitted dispatch, here
 it is a sequence of launches with the LM's per-iteration reads of its stop
 flags.
 
-Not ported yet: NDT registration (ROADMAP A12) and scan-to-submap mode
-(A10-scan-to-map, which needs `voxel_downsample`).
+The registration is APDGICP, GICP or NDT (`registration="ndt"`, which
+builds the keyframe's voxel map on every align, as the JAX package does).
+With `enable_scan_to_map` the target is a submap instead of the last
+keyframe: the last `max_submap_frames` keyframe clouds moved into the
+current keyframe's frame, merged and voxel-downsampled on their own device
+to a fixed `submap_capacity` (`_rebuild_submap`), in `step` and in
+`step_fused` alike.
 """
 
 from __future__ import annotations
@@ -28,11 +33,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core.pointcloud import PointCloud
+from ..core.pointcloud import PointCloud, make_cloud, voxel_downsample
 from ..estimators.egovel import EgoVelConfig, estimate_ego_velocity
 from ..estimators.groundseg import GroundSegConfig, estimate_ground
 from ..ops.nn import nn1_best
 from ..registration.gicp import GICPConfig, _transform, gicp_align
+from ..registration.ndt import NDTConfig, ndt_align
 from .preprocessing import PreprocessConfig, preprocess_frame
 
 
@@ -54,26 +60,17 @@ class OdometryConfig(NamedTuple):
     compute_inlier_fraction: bool = True
     inlier_max_correspondence_dist: float = 0.5
     scan_period: float = 0.1
-    registration: str = "apdgicp"  # "apdgicp" | "gicp" here; "ndt" is ROADMAP A12
+    registration: str = "apdgicp"  # "apdgicp" | "gicp" | "ndt"
     gicp: GICPConfig = GICPConfig()
-    ndt: Optional[dict] = None  # NDTConfig fields, for the NDT port (ROADMAP A12)
+    ndt: NDTConfig = NDTConfig()
     egovel: EgoVelConfig = EgoVelConfig()  # used by the fused frontend
     groundseg: GroundSegConfig = GroundSegConfig()  # fused ground / floor segmentation
-    enable_scan_to_map: bool = False  # scan-to-submap mode (ROADMAP A10-scan-to-map)
+    # scan-to-submap mode (`:602-618`): register against the merged last-N
+    # keyframe clouds instead of the single last keyframe
+    enable_scan_to_map: bool = False
     max_submap_frames: int = 5
     submap_resolution: float = 0.25
     submap_capacity: int = 8192
-
-
-def check_supported(cfg: OdometryConfig):
-    """Raise for the parts of the config that need an unported module."""
-    if cfg.registration not in ("apdgicp", "gicp"):
-        raise NotImplementedError(
-            f"registration={cfg.registration!r} is ported with NDT/VGICP (ROADMAP A12)"
-        )
-    if cfg.enable_scan_to_map:
-        raise NotImplementedError("scan-to-map odometry is not ported yet (ROADMAP "
-                                  "A10-scan-to-map: it needs voxel_downsample)")
 
 
 def _rot_angle(R) -> float:
@@ -115,10 +112,11 @@ def _inlier_fraction(src_xyz, src_mask, tgt_xyz, tgt_mask, T, max_dist):
 def _cloud_from_packed(packed, count):
     """PointCloud on the packed frame's device from its [x, y, z, intensity,
     doppler] rows and the valid count (a device scalar): one upload instead
-    of five."""
+    of five. The points are copied out of the packed rows: the 1-NN kernels
+    take a contiguous ref."""
     cap = packed.shape[0]
     return PointCloud(
-        xyz=packed[:, :3],
+        xyz=packed[:, :3].contiguous(),
         intensity=packed[:, 3],
         doppler=packed[:, 4],
         cluster=torch.zeros((cap,), dtype=packed.dtype, device=packed.device),
@@ -160,6 +158,13 @@ def _fused_ingest_core(packed, host_state, egocfg, gscfg, ppcfg, generator, hyp_
     return cloud, ego, parts
 
 
+def _register(source: PointCloud, target: PointCloud, guess, cfg: OdometryConfig):
+    """The configured registration of `source` to `target` from `guess`."""
+    if cfg.registration == "ndt":
+        return ndt_align(source, target, init_T=guess, cfg=cfg.ndt)
+    return gicp_align(source, target, init_T=guess, cfg=cfg.gicp._replace(mode=cfg.registration))
+
+
 def _ego_parts(ego, dtype):
     return [ego.v.to(dtype), ego.sigma.to(dtype), ego.zero_velocity.to(dtype)[None]]
 
@@ -171,7 +176,7 @@ def fused_frontend_step(packed, host_state, kf_cloud: PointCloud, cfg: OdometryC
                         hyp_idx=None) -> FusedStepOut:
     """[full preprocessing ->] Doppler ego-velocity RANSAC -> cumulative
     motion guess (`guess = prev_trans * egovel_cum`, `:458-462`) ->
-    scan-to-keyframe registration. `host_state` (on the packed frame's
+    registration to the keyframe (or submap) cloud. `host_state` (on the packed frame's
     device) = [prev_trans.ravel() (16), count, dt, seed, frame_idx, omega
     (3)] (23,), optionally with the external MSF pose delta at [23:39]."""
     dtype = packed.dtype
@@ -186,7 +191,7 @@ def fused_frontend_step(packed, host_state, kf_cloud: PointCloud, cfg: OdometryC
     guess = prev_trans @ egovel_cum
     if host_state.shape[0] >= 39:
         guess = guess @ host_state[23:39].reshape(4, 4)
-    res = gicp_align(cloud, kf_cloud, init_T=guess, cfg=cfg.gicp._replace(mode=cfg.registration))
+    res = _register(cloud, kf_cloud, guess, cfg)
     parts = [res.T.reshape(-1).to(dtype),
              res.converged.to(dtype=dtype, device=packed.device)[None],
              res.error.to(dtype)[None]] + _ego_parts(ego, dtype) + ground_parts
@@ -251,9 +256,8 @@ class ScanMatchingOdometry:
     last_plane: Optional[np.ndarray] = None
     last_cloud: Optional[PointCloud] = None
     _frame_idx: int = -1
-
-    def __post_init__(self):
-        check_supported(self.cfg)
+    # scan-to-map state: (pose, cloud) of the last keyframes
+    _submap_frames: list = field(default_factory=list)
 
     def push_msf_pose(self, t: float, T: np.ndarray, after_update: bool = False) -> None:
         """Feed an externally fused pose (`/msf_core/pose[_after_update]`)."""
@@ -348,10 +352,26 @@ class ScanMatchingOdometry:
         mat_est[:3, 3] = egovel_trans
         return mat_est
 
+    def _rebuild_submap(self):
+        """Merge the last keyframe clouds into the current keyframe's frame
+        (`:602-618`) on their device: moved in float64 and cast back to the
+        clouds' dtype, voxel-downsampled, the valid voxels packed into a
+        cloud of `submap_capacity` (the first ones in key order)."""
+        ref_pose_inv = np.linalg.inv(self.keyframe_pose)
+        pts = []
+        for pose, cloud in self._submap_frames[-self.cfg.max_submap_frames:]:
+            T = torch.as_tensor(ref_pose_inv @ pose, device=cloud.xyz.device)
+            xyz = cloud.xyz[cloud.mask]
+            pts.append((xyz.to(T.dtype) @ T[:3, :3].T + T[:3, 3]).to(xyz.dtype))
+        allpts = torch.cat(pts)
+        merged = voxel_downsample(make_cloud(allpts, capacity=max(allpts.shape[0], 1)),
+                                  self.cfg.submap_resolution)
+        xyz = merged.xyz[merged.mask][: self.cfg.submap_capacity]
+        self.keyframe_cloud = make_cloud(xyz, capacity=self.cfg.submap_capacity)
+
     def _align(self, source: PointCloud, target: PointCloud, guess):
-        cfg = self.cfg.gicp._replace(mode=self.cfg.registration)
-        init_T = torch.as_tensor(guess, device=source.xyz.device)
-        return gicp_align(source, target, init_T=init_T, cfg=cfg)
+        return _register(source, target, torch.as_tensor(guess, device=source.xyz.device),
+                         self.cfg)
 
     def step_fused(self, stamp: float, packed: torch.Tensor, count: int, seed: int = 0,
                    ground: bool = False, omega=None, generator: Optional[torch.Generator] = None,
@@ -368,8 +388,6 @@ class ScanMatchingOdometry:
         `generator` draws the RANSAC hypotheses (`hyp_idx` passes them in);
         `seed` fills the state vector's slot, as in the JAX package, whose
         hypotheses it keys."""
-        if self.cfg.enable_scan_to_map:
-            raise NotImplementedError("scan-to-map is not fused (ROADMAP A10-scan-to-map)")
         self._frame_idx += 1
         state = np.zeros(39, dtype=str(packed.dtype).removeprefix("torch."))  # packed's dtype
         state[:16] = self.prev_trans_s2s.ravel()
@@ -395,6 +413,8 @@ class ScanMatchingOdometry:
                 self.last_plane = host[26:30].astype(np.float64)
             self.keyframe_cloud = self.last_cloud = out.cloud
             self.keyframe_stamp = self.last_stamp = stamp
+            if self.cfg.enable_scan_to_map:
+                self._submap_frames.append((self.keyframe_pose.copy(), out.cloud))
             return self.odom.copy(), host[18:21]
 
         self._prev_frame_stamp = self.last_stamp
@@ -470,7 +490,11 @@ class ScanMatchingOdometry:
             self.keyframe_pose = self.odom.copy()
             self.keyframe_stamp = stamp
             self.prev_trans_s2s = np.eye(4)
-            self.keyframe_cloud = cloud
+            if self.cfg.enable_scan_to_map:
+                self._submap_frames.append((self.keyframe_pose.copy(), cloud))
+                self._rebuild_submap()
+            else:
+                self.keyframe_cloud = cloud
 
     def step(self, stamp: float, cloud: PointCloud, ego_vel: np.ndarray) -> np.ndarray:
         """Process one frame; returns the 4x4 odometry pose (map<-body)."""
@@ -478,6 +502,8 @@ class ScanMatchingOdometry:
             self.keyframe_cloud = cloud
             self.keyframe_stamp = stamp
             self.last_stamp = stamp
+            if self.cfg.enable_scan_to_map:
+                self._submap_frames.append((self.keyframe_pose.copy(), cloud))
             return self.odom.copy()
 
         # cumulative ego-velocity delta since the last frame (`:356-365`)

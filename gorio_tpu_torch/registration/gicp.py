@@ -26,7 +26,7 @@ from ..core import lie
 from ..core.linalg import inv3, sym_eigh3
 from ..core.pointcloud import PointCloud
 from ..ops.nn import nn1_best, nn1_select
-from .knn import knn
+from .knn import knn, rbf_covariances
 from .lsq import LMConfig, LMResult, lm_optimize, lm_optimize_batch
 
 
@@ -42,8 +42,8 @@ class GICPConfig(NamedTuple):
     plane_eps: float = 1e-3  # PLANE regularization smallest eigenvalue
     lm: LMConfig = LMConfig()
     mode: str = "apdgicp"  # "gicp" | "apdgicp" | "icp"
-    # neighbourhood covariance estimator: "knn" here; "rbf" belongs to the
-    # VGICP port (ROADMAP A12)
+    # neighbourhood covariance estimator: "knn" (FastGICP
+    # `calculate_covariances`) or "rbf" (FastVGICPCuda GPU_RBF_KERNEL)
     covariance_method: str = "knn"
     rbf_kernel_width: float = 0.25
     rbf_max_dist: float = 3.0
@@ -122,16 +122,32 @@ class GICPProblem(NamedTuple):
     tgt_cluster: torch.Tensor
 
 
-def _covariances(cloud: PointCloud, cfg: GICPConfig):
-    """Neighbourhood covariances per the config: identity for "icp"."""
+def rbf_regularized_covariances(xyz, mask, kernel_width, max_dist, plane_eps):
+    """RBF-kernel covariances with the PLANE regularisation the CUDA path
+    applies afterwards (`covariance_regularization.cu`, called from
+    `fast_vgicp_cuda.cu:205-218`). One cloud (N, 3); returns (cov (N, 3, 3),
+    geo_w (N,))."""
+    _, cov, _ = rbf_covariances(xyz, mask, kernel_width, max_dist)
+    lam, V = sym_eigh3(cov)
+    values = torch.tensor([plane_eps, 1.0, 1.0], dtype=xyz.dtype, device=xyz.device)
+    reg = torch.einsum("nij,j,nkj->nik", V, values, V)
+    geo_w = torch.clamp(lam[:, 0], min=0.0) / torch.clamp(lam[:, 2], min=1e-30)
+    return reg, geo_w
+
+
+def _covariances(cloud: PointCloud, cfg):
+    """Neighbourhood covariances per the config: identity for "icp", else
+    by `covariance_method`. Shared by GICP and VGICP (duck-typed over
+    `GICPConfig` / `VGICPConfig`)."""
     lead = cloud.xyz.shape[:-1]
-    if cfg.mode == "icp":
+    if getattr(cfg, "mode", "gicp") == "icp":
         eye = torch.eye(3, dtype=cloud.xyz.dtype, device=cloud.xyz.device).expand(*lead, 3, 3)
         return eye, torch.zeros(lead, dtype=cloud.xyz.dtype, device=cloud.xyz.device)
-    if cfg.covariance_method != "knn":
-        raise NotImplementedError(
-            f"covariance_method={cfg.covariance_method!r} is ported with VGICP (ROADMAP A12)"
-        )
+    if cfg.covariance_method == "rbf":
+        if cloud.xyz.dim() != 2:
+            raise ValueError('covariance_method="rbf" takes one cloud, not a batch')
+        return rbf_regularized_covariances(cloud.xyz, cloud.mask, cfg.rbf_kernel_width,
+                                           cfg.rbf_max_dist, cfg.plane_eps)
     return knn_covariances(cloud.xyz, cloud.mask, cfg.k_correspondences, cfg.plane_eps)
 
 

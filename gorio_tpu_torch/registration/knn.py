@@ -1,6 +1,7 @@
 """Brute-force nearest-neighbour search, blocked over queries.
 
-Port of `nn1` and `knn` from `gorio_tpu/registration/knn.py`. Distances are
+Port of `nn1`, `knn` and `rbf_covariances` from
+`gorio_tpu/registration/knn.py`. Distances are
 the direct sum of squared coordinate differences (the JAX package expands
 |q|^2 + |r|^2 - 2 q.r for its matrix unit; the direct form has no
 cancellation at 50 m ranges in float32). Masked refs get the additive bias
@@ -68,3 +69,32 @@ def knn(query, ref, k: int, ref_mask=None, block: int = 512):
         d2_parts.append(vals)
     idx, d2 = torch.cat(idx_parts, dim=1), torch.cat(d2_parts, dim=1)
     return (idx[0], d2[0]) if squeeze else (idx, d2)
+
+
+def rbf_covariances(xyz, mask=None, kernel_width: float = 0.25, max_dist: float = 3.0,
+                    block: int = 512):
+    """RBF-kernel-weighted neighbourhood mean and covariance per point
+    (`covariance_estimation_rbf.cu:67-110`, FastVGICPCuda's
+    GPU_RBF_KERNEL): every valid neighbour within `max_dist` weighs
+    w = exp(-kernel_width * d^2); the weighted second moment about the
+    weighted mean is the covariance. Blocked over queries.
+    Returns (mean (N, 3), cov (N, 3, 3), sum_w (N,))."""
+    q, r, bias, _ = _prepare(xyz, xyz, mask)
+    md2 = max_dist * max_dist
+    x = r[0]
+    r2 = torch.stack([x[:, 0] * x[:, 0], x[:, 0] * x[:, 1], x[:, 0] * x[:, 2],
+                      x[:, 1] * x[:, 1], x[:, 1] * x[:, 2], x[:, 2] * x[:, 2]], dim=-1)
+    sw_parts, m1_parts, m2_parts = [], [], []
+    for s in range(0, q.shape[1], block):
+        d2 = _block_dists(q[:, s : s + block], r, bias)[0]
+        w = torch.where(d2 <= md2, torch.exp(-kernel_width * d2), torch.zeros_like(d2))
+        sw_parts.append(torch.sum(w, dim=-1))
+        m1_parts.append(w @ x)  # weighted sum of positions
+        m2_parts.append(w @ r2)  # weighted sum of the second moments
+    sum_w, m1, m2 = torch.cat(sw_parts), torch.cat(m1_parts), torch.cat(m2_parts)
+    sw = torch.clamp(sum_w, min=1e-12)
+    mean = m1 / sw[:, None]
+    exx = torch.stack([torch.stack([m2[:, 0], m2[:, 1], m2[:, 2]], -1),
+                       torch.stack([m2[:, 1], m2[:, 3], m2[:, 4]], -1),
+                       torch.stack([m2[:, 2], m2[:, 4], m2[:, 5]], -1)], dim=-2) / sw[:, None, None]
+    return mean, exx - mean[:, :, None] * mean[:, None, :], sum_w

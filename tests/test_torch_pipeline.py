@@ -66,13 +66,6 @@ def test_odometry_steps_match_jax(frames, imu):
         assert any(s.used_prediction for s in todo.statuses)
 
 
-def test_unported_odometry_modes_raise():
-    with pytest.raises(NotImplementedError, match="A12"):
-        to.ScanMatchingOdometry(to.OdometryConfig(registration="ndt"))
-    with pytest.raises(NotImplementedError, match="A10"):
-        to.ScanMatchingOdometry(to.OdometryConfig(enable_scan_to_map=True))
-
-
 def test_slam_backend_matches_jax(frames):
     """Keyframes every frame, LPM between them, GPS fixes 6 m off the
     trajectory (so the drift gate lets their priors in), dense solve."""

@@ -218,11 +218,9 @@ def test_full_configuration_matches_jax(full_runs):
 
 
 @pytest.mark.parametrize("flags,item", [
-    ([*FULL, "--registration", "ndt"], "A12"),
     ([*FULL, "--dump", "g.g2o"], "A13"),
     ([*FULL, "--map", "m.npz"], "A13"),
     ([*FULL, "--config", "c.yaml"], "A13"),
-    (["--registration", "ndt"], "A12"),
     (["--dump", "g.g2o"], "A13"),
     (["--map", "m.npz"], "A13"),
     (["--config", "c.yaml"], "A13"),
@@ -244,9 +242,10 @@ def test_cuda_device_without_a_card_raises(runs):
 def test_port_runs_without_jax(runs, full_runs, tmp_path):
     """A process in which `import jax`, `import jaxlib` and `import
     gorio_tpu` (and every submodule) fail runs the port's whole slice, loop
-    closure on: simulate, slam (the default path, and the paper's four
-    flags), evaluate — with the same results as this process (with loops
-    off: the 4 s sequence never passes the 50 m gate).
+    closure on: simulate, slam (the default path, the paper's four flags,
+    and `--registration ndt`), evaluate, align — with the same results as
+    this process (with loops off: the 4 s sequence never passes the 50 m
+    gate).
     (An import hook blocks them: a `sys.modules['jax'] = None` entry trips
     scipy's array-API helper, which looks the module up by name.)"""
     d = runs[0]
@@ -265,6 +264,15 @@ def test_port_runs_without_jax(runs, full_runs, tmp_path):
         "assert r['ate_rmse_m'] < 0.05\n"
         f"main(['slam', '--dataset', 'seq', '--output', {str(tmp_path / 'f.tum')!r},"
         f" '--capacity', '512', '--device', 'cpu', *{FULL!r}])\n"
+        f"main(['slam', '--dataset', 'seq', '--output', {str(tmp_path / 'n.tum')!r},"
+        " '--capacity', '512', '--device', 'cpu', '--registration', 'ndt'])\n"
+        "from gorio_tpu_torch.io.pcd import write_pcd\n"
+        "import numpy as np\n"
+        "xyz = np.random.default_rng(0).uniform(-5, 5, (300, 3))\n"
+        "write_pcd('a.pcd', xyz)\n"
+        "rows = main(['align', 'a.pcd', 'a.pcd', '--repeat', '0', '--device', 'cpu',"
+        " '--methods', 'NDT_OMP,FAST_VGICP'])\n"
+        "assert len(rows) == 2 and all(np.isfinite(r['T'].numpy()).all() for r in rows)\n"
         "assert not [m for m, v in sys.modules.items() if v is not None\n"
         "            and m.split('.')[0] in ('jax', 'jaxlib', 'gorio_tpu')]\n"
     )
@@ -277,6 +285,7 @@ def test_port_runs_without_jax(runs, full_runs, tmp_path):
     # the fused path draws its hypotheses from the same seeded generator
     np.testing.assert_allclose(load_tum(tmp_path / "f.tum")[1],
                                load_tum(d / "torch_full.tum")[1], atol=1e-7)
+    assert np.isfinite(load_tum(tmp_path / "n.tum")[1]).all()
 
 
 def _imported_modules(path):
@@ -303,8 +312,8 @@ def test_port_imports_nothing_of_the_jax_package(path):
 
 def test_configs_carry_over_from_jax():
     """`convert.config_from_dict` maps the JAX CLI's configs (nested ones
-    included: loop closure, Scan Context, the solver) onto the port's;
-    the config of the unported NDT stays a dict."""
+    included: loop closure, Scan Context, the solver, the odometry's NDT)
+    onto the port's."""
     from gorio_tpu.loopclosure.loop_detector import LoopConfig as JLoop
     from gorio_tpu.loopclosure.scancontext import ScanContextConfig as JSC
     from gorio_tpu_torch.graph.solver import SolveConfig
@@ -316,6 +325,10 @@ def test_configs_carry_over_from_jax():
     from gorio_tpu_torch.pipeline.odometry import OdometryConfig
     from gorio_tpu_torch.pipeline.slam import SLAMConfig
     from gorio_tpu_torch.preintegration.ugpm import UGPMConfig
+    from gorio_tpu.registration.ndt import NDTConfig as JNDT
+    from gorio_tpu.registration.vgicp import VGICPConfig as JVGICP
+    from gorio_tpu_torch.registration.ndt import NDTConfig
+    from gorio_tpu_torch.registration.vgicp import VGICPConfig
 
     jslam = JSlam(enable_loop_closure=False, gyr_var=2e-5,
                   loop=JLoop(accum_distance_thresh=20.0, sc_candidates=1))
@@ -328,7 +341,13 @@ def test_configs_carry_over_from_jax():
         ScanContextConfig(num_candidates=5)
     odo = config_from_dict(OdometryConfig, JOdo(registration="gicp")._asdict())
     assert odo.registration == "gicp" and odo.gicp.lm.max_iterations == 64
-    assert odo == OdometryConfig(registration="gicp", ndt=odo.ndt)
-    assert isinstance(odo.ndt, dict)
+    assert odo == OdometryConfig(registration="gicp")
+    assert isinstance(odo.ndt, NDTConfig) and odo.ndt == NDTConfig()
+    odo = config_from_dict(OdometryConfig, JOdo(registration="ndt", ndt=JNDT(resolution=2.0),
+                                                enable_scan_to_map=True)._asdict())
+    assert odo == OdometryConfig(registration="ndt", ndt=NDTConfig(resolution=2.0),
+                                 enable_scan_to_map=True)
+    assert config_from_dict(VGICPConfig, JVGICP(covariance_method="rbf")._asdict()) == \
+        VGICPConfig(covariance_method="rbf")
     with pytest.raises(ValueError, match="no fields"):
         config_from_dict(SLAMConfig, {"not_a_field": 1})
