@@ -36,14 +36,23 @@ Phases, one line each (more for the tables):
                distance matrix, 64 GiB, does not fit).
   4. slice   — the port's CLI, its default command: `simulate` (seed 0, 20 s
                at 5 Hz, capacity 2048, 9000 landmarks: 98 frames), `slam
-               --device cuda` (loop closure on), `evaluate`. Fails unless the
+               --device cuda --dump D --map M` (loop closure on), `evaluate`.
+               Fails unless the
                `nn1_select` launches equal the per-frame LM iterations plus
                the loop verification's outer LM iterations, `nn1` launched
                too, every keyframe cloud lives on the card, loop detection
                ran (its gate counts are not empty), the keyframe count is
                80 +- 4, the loop count the JAX package's (0: the 40 m drive
                never passes the 50 m accumulated-distance gate) and the ATE
-               is <= 0.05 m.
+               is <= 0.05 m. The dumped graph, reloaded with
+               `PoseGraph.load`, must hold one vertex per keyframe at the
+               trajectory's poses (1e-9 m); the map's point count must lie
+               within 2% of the JAX package's record and its bounds within
+               0.05 m. Then the same `slam` with `--config` of `dump-config`'s
+               tree must give the same trajectory to the bit.
+               `estimate_ground` and `dbscan_cluster`, each run twice on one
+               frame of the sequence (float64, on the card), must agree to
+               the bit (their segment sums are sorted and segmented).
   5. circuit — the repo's loop sequence at full width: `simulate --duration
                75 --rate 5 --seed 22 --circuit --laps 2 --dynamic 2` (373
                frames, two laps of a closed route), `slam --optimize-every 15
@@ -112,10 +121,30 @@ Phases, one line each (more for the tables):
                Then NDT DIRECT7 per-align ms on the same pair with the maps
                prebuilt, single-resolution and coarse-to-fine (`bench.py`'s
                protocol).
+  11. stream — `python -m gorio_tpu_torch.cli stream` on the 98 frames, after
+               its warm-up: `--mode block --rate-multiplier 1` (the sensor's
+               5 Hz) with `--output`, then `--mode drop --rate-multiplier 4`
+               (a 50 ms period), then block mode at 5 Hz through
+               `stream_sequence` with an optimize every 15 keyframes, on the
+               consumer thread and then on the async worker. Each prints its
+               `StreamReport` and launches. Fails unless block mode processes
+               all 98 frames and drops none, with the slice's keyframes +-2%;
+               drop mode processes or counts every frame; the frames each
+               CLI run processed, fed again through a plain loop of the same
+               calls (`step_fused` with the same seeded generator,
+               `add_frame`, the final `optimize`), give its keyframes and
+               trajectory to the bit; the optimizing runs process all 98
+               frames and optimize; `nn1_select` launched at least once per
+               odometry LM iteration; and the block runs' ATE is <= 0.05 m
+               (drop mode's is printed, not held: the odometry's 1 m sanity
+               gate rejects the jumps across dropped frames). The realtime
+               factor, frames on time and the latency percentiles are
+               printed, not held.
 The two sequences are simulated in child processes started at the beginning,
 beside the build and the kernel phase. Then the kernels' JSON line, the card
 line, and the last line `{"ok": true, "device": {...}}`. Any failure exits
 non-zero with no result.
+
 """
 
 from __future__ import annotations
@@ -211,6 +240,14 @@ ALIGN_JAX = {"ICP": (5.214236404787842e-05, 0.0),
              "NDT_OMP": (0.027744391381214824, 0.014163451642024599),
              "NDT_CUDA_D2D": (0.25514880550804603, 0.0)}
 ALIGN_JAX_MISSES = ("NDT_CUDA_D2D",)
+# `slam --map` of the slice (`tests/jax_records.py slice-map`, JAX CPU f64,
+# its reader's float32 frames as the port's unfused CLI reads them): the
+# 0.2 m voxel map's point count and bounds
+SLICE_MAP_JAX = {"points": 6639, "min": [2.7560989087806274, -37.01992436277447,
+                                          -4.47985824354537],
+                 "max": [74.07914565383835, 45.219184813470044, 11.709315422946588]}
+MAP_POINTS_TOL, MAP_BOUNDS_M = 0.02, 0.05
+STREAM_OPTIMIZE_EVERY = 15
 CARD = ""  # the card's `nvidia-smi` name and power limit, set by main()
 
 
@@ -589,7 +626,13 @@ def report(what, n_frames, slam, timer, launches, batched, wall, result, lm_iter
 
 
 def slice_phase(K, seq, tmp):
-    slam, odo, timer, launches, batched, wall, result = run_slam(K, seq, tmp / "slice.tum", [])
+    import numpy as np
+
+    from gorio_tpu_torch.cli import main as cli
+    from gorio_tpu_torch.graph.graph import PoseGraph
+
+    slam, odo, timer, launches, batched, wall, result = run_slam(
+        K, seq, tmp / "slice.tum", ["--dump", str(tmp / "dump"), "--map", str(tmp / "map.npz")])
     lm_iters, verify_iters = check_common("slice", slam, odo, launches)
     report("slice", len(list(seq.glob("*.grf"))), slam, timer, launches, batched, wall, result,
            lm_iters, verify_iters)
@@ -600,7 +643,63 @@ def slice_phase(K, seq, tmp):
         fail(f"slice: {len(slam.loops)} loops, the JAX package accepts {SLICE_JAX_LOOPS}")
     if not result["ate_rmse_m"] <= ATE_MAX:
         fail(f"slice: ATE {result['ate_rmse_m']} m > {ATE_MAX} m")
-    return launches
+
+    # --dump: the graph reloads with a vertex per keyframe at its pose
+    traj = slam.trajectory()[1]
+    g = PoseGraph.load(tmp / "dump" / "graph.g2o")
+    gap = float(np.abs(np.stack(g.poses)[:, :3, 3] - traj[:, :3, 3]).max()) if g.poses else None
+    print(f"[slice] --dump: {len(g.poses)} vertices, {len(g._between)} between edges, "
+          f"{len(list((tmp / 'dump').glob('0*')))} keyframe directories; largest vertex gap "
+          f"to the trajectory {gap} m", flush=True)
+    if len(g.poses) != n_kf or not gap <= 1e-9:
+        fail(f"slice: the dumped graph has {len(g.poses)} vertices for {n_kf} keyframes, "
+             f"largest gap {gap} m")
+    # --map: the voxel map against the JAX package's record
+    xyz = np.load(tmp / "map.npz")["xyz"]
+    lo, hi = xyz.min(axis=0), xyz.max(axis=0)
+    rec = SLICE_MAP_JAX
+    print(f"[slice] --map: {len(xyz)} points (JAX {rec['points']}), bounds "
+          f"{lo.round(4).tolist()} .. {hi.round(4).tolist()} (JAX "
+          f"{np.round(rec['min'], 4).tolist()} .. {np.round(rec['max'], 4).tolist()})",
+          flush=True)
+    bounds_gap = float(max(np.abs(lo - rec["min"]).max(), np.abs(hi - rec["max"]).max()))
+    if abs(len(xyz) - rec["points"]) > MAP_POINTS_TOL * rec["points"] or \
+            not bounds_gap <= MAP_BOUNDS_M:
+        fail(f"slice: the map's {len(xyz)} points / bounds {bounds_gap:.4f} m off the JAX "
+             f"record ({rec['points']} points; limits {MAP_POINTS_TOL:.0%}, {MAP_BOUNDS_M} m)")
+    # --config: the default tree gives the flags' run to the bit
+    cli(["dump-config", "--output", str(tmp / "config.json")])
+    again, _, _ = cli(["slam", "--dataset", str(seq), "--output", str(tmp / "slice_cfg.tum"),
+                       "--config", str(tmp / "config.json"), "--device", "cuda"])
+    same = np.array_equal(again.trajectory()[1], traj)
+    print(f"[slice] --config of dump-config's tree: {len(again.keyframes)} keyframes, the "
+          f"trajectory {'equal to the bit' if same else 'DIFFERENT'}", flush=True)
+    if not same:
+        fail("slice: `slam --config` with the default tree changed the trajectory")
+    return launches, n_kf
+
+
+def repeat_check(seq):
+    """`estimate_ground` and `dbscan_cluster` twice on one frame of `seq`
+    (float64 on the card, the CLI's density): the same bits."""
+    import torch
+
+    from gorio_tpu_torch.core.pointcloud import make_cloud
+    from gorio_tpu_torch.estimators.clustering import DBSCANConfig, dbscan_cluster
+    from gorio_tpu_torch.estimators.groundseg import GroundSegConfig, estimate_ground
+    from gorio_tpu_torch.io.native import NativePipelineDataset
+
+    _, n, packed = next(NativePipelineDataset(sorted(seq.glob("*.grf"))[40:41], capacity=2048))
+    frame = torch.tensor(packed[:n], dtype=torch.float64, device="cuda")
+    cloud = make_cloud(frame[:, :3], intensity=frame[:, 3], doppler=frame[:, 4], capacity=2048)
+    for what, fn in (("estimate_ground", lambda: estimate_ground(cloud, GroundSegConfig())),
+                     ("dbscan_cluster", lambda: dbscan_cluster(cloud, DBSCANConfig()))):
+        first, again = fn(), fn()
+        diff = [f for f, a, b in zip(first._fields, first, again)
+                if isinstance(a, torch.Tensor) and not torch.equal(a, b)]
+        if diff:
+            fail(f"repeat: two runs of {what} on one scan differ in {diff}")
+        print(f"[repeat] two runs of {what} on a {n}-point scan agree to the bit", flush=True)
 
 
 class SolveTimer:
@@ -959,6 +1058,135 @@ def scan_to_map_phase(K, seq):
     return launches
 
 
+def stream_phase(K, seq, tmp, slice_keyframes):
+    """The `stream` CLI in block and drop mode, and `stream_sequence` with
+    the async optimize worker, on the 98 frames."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from gorio_tpu_torch.cli import _imu_and_slam
+    from gorio_tpu_torch.cli import main as cli
+    from gorio_tpu_torch.io.tum import save_tum
+    from gorio_tpu_torch.pipeline.odometry import OdometryConfig, ScanMatchingOdometry
+    from gorio_tpu_torch.pipeline.streaming import stream_sequence
+
+    frames = sorted(seq.glob("*.grf"))
+    launches = {}
+    defaults = SimpleNamespace(no_loops=False, preint="lpm")  # the `stream` CLI's
+
+    def done(what, report, slam, odo, traj, exact=True, hold_ate=True):
+        launches[what] = counts = dict(K.launch_counts)
+        ate = cli(["evaluate", str(traj), str(seq / "groundtruth.tum")])["ate_rmse_m"]
+        lm_iters = sum(st.iterations for st in odo.statuses)
+        verify = slam.loop_detector.verify_iterations
+        print(f"[{what}] {CARD}: {report.to_json()}", flush=True)
+        print(f"[{what}] launches {counts}; LM iterations {lm_iters} (odometry) + {verify} "
+              f"(verification); realtime factor {report.realtime_factor}, on time "
+              f"{report.on_time_frac}, latency p50 / p95 / max {report.latency_p50_ms} / "
+              f"{report.latency_p95_ms} / {report.latency_max_ms} ms at a {report.period_ms} ms "
+              f"period; ATE {ate:.6f} m{'' if hold_ate else ' (not held)'}", flush=True)
+        # at least: the warm-up's two frames launch too (and with the async
+        # worker two threads count, so only launches at all are held)
+        if counts["nn1_select"] < (lm_iters + verify if exact else 1):
+            fail(f"{what}: nn1_select launched {counts['nn1_select']} times for {lm_iters} + "
+                 f"{verify} LM iterations")
+        if hold_ate and not ate <= ATE_MAX:
+            fail(f"{what}: ATE {ate} m > {ATE_MAX} m")
+
+    def replay(what, slam, stamps):
+        """The frames a stream processed, through a plain loop of the same
+        calls on the card: its keyframes and final trajectory to the bit."""
+        from gorio_tpu_torch.io.native import NativePipelineDataset
+
+        imu, ref = _imu_and_slam(defaults, seq, "cuda", floor=False)
+        odo = ScanMatchingOdometry(OdometryConfig())
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        keep = set(stamps)
+        gyr_t, gyr = np.asarray(imu["gyr_t"]), np.asarray(imu["gyr"])
+        for stamp, n, packed in NativePipelineDataset(frames, capacity=2048):
+            if float(stamp) not in keep:
+                continue
+            omega = gyr[np.clip(np.searchsorted(gyr_t, stamp) - 1, 0, gyr_t.size - 1)]
+            frame = torch.tensor(packed, dtype=torch.float64, device="cuda")
+            pose, _ = odo.step_fused(float(stamp), frame, n, omega=omega, generator=gen)
+            ref.add_frame(float(stamp), odo.last_cloud, pose)
+        ref.optimize()
+        same_kfs = [kf.stamp for kf in ref.keyframes] == [kf.stamp for kf in slam.keyframes] \
+            and all(np.array_equal(a.odom_scan2scan, b.odom_scan2scan)
+                    for a, b in zip(ref.keyframes, slam.keyframes))
+        got, want = slam.trajectory()[1], ref.trajectory()[1]
+        gap = float(np.abs(got[:, :3, 3] - want[:, :3, 3]).max()) if got.shape == want.shape \
+            else float("inf")
+        print(f"[{what}] its {len(stamps)} processed frames through a plain loop: "
+              f"{len(ref.keyframes)} keyframes against {len(slam.keyframes)}, equal to the bit: "
+              f"{same_kfs}; trajectory gap {gap} m", flush=True)
+        if not same_kfs or not np.array_equal(got, want):
+            fail(f"{what}: the stream's keyframes or trajectory differ from a plain loop over "
+                 f"the frames it processed")
+
+    stepped = []
+    step_fused = ScanMatchingOdometry.step_fused
+
+    def recording_step(self, stamp, *args, **kwargs):
+        stepped.append((self, float(stamp)))
+        return step_fused(self, stamp, *args, **kwargs)
+
+    for what, flags in (("stream", ["--mode", "block", "--rate-multiplier", "1"]),
+                        ("stream-drop", ["--mode", "drop", "--rate-multiplier", "4"])):
+        K.reset_launch_counts()
+        stepped.clear()
+        traj = tmp / f"{what}.tum"
+        ScanMatchingOdometry.step_fused = recording_step
+        try:
+            report, slam, odo = cli(["stream", "--dataset", str(seq), *flags, "--output",
+                                     str(traj), "--report-out", str(tmp / f"{what}.json"),
+                                     "--device", "cuda"])
+        finally:
+            ScanMatchingOdometry.step_fused = step_fused
+        # dropped frames leave 0.4-0.8 s gaps, past the odometry's 1 m sanity
+        # gate at 2 m/s: the odometry keeps its prediction and drifts metres
+        done(what, report, slam, odo, traj, hold_ate=what == "stream")
+        if report.n_frames != len(frames) or \
+                report.n_processed + report.n_dropped != report.n_frames:
+            fail(f"{what}: {report.n_processed} processed + {report.n_dropped} dropped of "
+                 f"{report.n_frames} frames ({len(frames)} in the sequence)")
+        if what == "stream":
+            if report.n_dropped or abs(report.n_keyframes - slice_keyframes) > \
+                    0.02 * slice_keyframes:
+                fail(f"stream: {report.n_dropped} dropped, {report.n_keyframes} keyframes (the "
+                     f"slice's {slice_keyframes} +- 2%)")
+        stamps = [t for o, t in stepped if o is odo]  # not the warm-up's odometry
+        if len(stamps) != report.n_processed:
+            fail(f"{what}: {len(stamps)} frames stepped, {report.n_processed} processed")
+        replay(what, slam, stamps)
+
+    # optimize every 15 keyframes, on the consumer thread and on the async
+    # worker: the CLI's back end and odometry
+    for what, async_ in (("stream-sync", False), ("stream-async", True)):
+        imu, slam = _imu_and_slam(defaults, seq, "cuda", floor=False)
+        odo = ScanMatchingOdometry(OdometryConfig())
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        K.reset_launch_counts()
+        report = stream_sequence(frames, slam, odo,
+                                 imu={"gyr_t": imu["gyr_t"], "gyr": imu["gyr"]},
+                                 optimize_every=STREAM_OPTIMIZE_EVERY, optimize_async=async_,
+                                 generator=gen)
+        slam.optimize()
+        save_tum(tmp / f"{what}.tum", *slam.trajectory())
+        done(what, report, slam, odo, tmp / f"{what}.tum", exact=not async_)
+        print(f"[{what}] optimize cycles {report.n_opt_cycles}, skipped "
+              f"{report.n_opt_skipped}, p50 / max {report.opt_p50_ms} / {report.opt_max_ms} ms",
+              flush=True)
+        if report.n_processed != len(frames) or report.n_opt_cycles == 0:
+            fail(f"{what}: {report.n_processed} frames processed, {report.n_opt_cycles} "
+                 f"optimize cycles")
+    return launches
+
+
 def synth_pair(n=69000, seed=0):
     """`bench.py`'s synthetic pair at the benchmark scans' scale (~70k
     points, ~100 m scene): b = T a + 2 cm noise with T a z-rotation of 0.02
@@ -1097,14 +1325,17 @@ def run_phases(tmp, sims):
 
     errs, stats, shapes, S_main = kernel_phase(K)
     wait_for(sims["slice"], "slice")
-    launches = {"slice": slice_phase(K, tmp / "slice", tmp),
-                "full-slice": full_slice_phase(K, tmp / "slice", tmp)}
+    launches = {}
+    launches["slice"], slice_keyframes = slice_phase(K, tmp / "slice", tmp)
+    repeat_check(tmp / "slice")
+    launches["full-slice"] = full_slice_phase(K, tmp / "slice", tmp)
     wait_for(sims["circuit"], "circuit")
     launches["circuit"] = circuit_phase(K, tmp / "circuit", tmp)
     launches["full-circuit"] = full_circuit_phase(K, tmp / "circuit", tmp)
     launches.update(ndt_slice_phase(K, tmp / "slice", tmp))
     launches.update(scan_to_map_phase(K, tmp / "slice"))
     launches["align"] = align_phase(K, tmp)
+    launches.update(stream_phase(K, tmp / "slice", tmp, slice_keyframes))
 
     replaces = {"nn1": "gorio_tpu/ops/nn_pallas.py:34",
                 "nn1_select": "gorio_tpu/ops/nn_pallas.py:125"}

@@ -1,19 +1,22 @@
 """Command-line tools of the PyTorch/CUDA port.
 
-  simulate  — generate a synthetic sequence to .grf files
-  slam      — run odometry + the pose-graph back-end over a .grf sequence
-  evaluate  — ATE/RTE of a TUM trajectory vs ground truth
-  align     — align two PCD scans with every registration method
+  simulate    — generate a synthetic sequence to .grf files
+  slam        — run odometry + the pose-graph back-end over a .grf sequence
+  stream      — replay a sequence on its recording's clock through the fused
+                frontend and the back end, with deadline accounting
+  evaluate    — ATE/RTE of a TUM trajectory vs ground truth
+  align       — align two PCD scans with every registration method
+  dump-config — write the default typed config tree (JSON, or YAML)
 
 Usage: python -m gorio_tpu_torch.cli <command> [args]
 
-`slam` accepts every flag of `python -m gorio_tpu.cli slam` and, like it,
-runs loop closure unless `--no-loops`; `--fused`, `--preprocess`, `--floor`,
-`--preint ugpm` and `--registration {apdgicp,gicp,ndt}` run as there. The
-flags that need a module the port does not have yet (`--config`, `--dump`,
-`--map`) raise NotImplementedError naming the ROADMAP item that ports it.
-`--device` (slam, align) picks the torch device (default cuda); there is no
-fallback to the CPU.
+`slam` and `stream` accept every flag of their `python -m gorio_tpu.cli`
+counterparts and, like them, run loop closure unless `--no-loops`. `slam
+--config` reads a `dump-config` tree (either package's), whose `slam` and
+`odometry` fields the flags override; `--dump` writes the graph and the
+keyframes, `--map` the voxelised map's points. `--device` (slam, stream,
+align) picks the torch device (default cuda); there is no fallback to the
+CPU.
 """
 
 from __future__ import annotations
@@ -91,16 +94,37 @@ def cmd_simulate(args):
     print(f"wrote {len(stamps)} frames to {out}")
 
 
-def _check_slam_flags(args):
-    """Refuse the flags whose modules are not ported yet."""
-    refused = [
-        (args.config, "--config (the typed config tree)", "A13"),
-        (args.dump, "--dump", "A13"),
-        (args.map, "--map", "A13"),
-    ]
-    for on, what, item in refused:
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+def _imu_and_slam(args, src, device, floor, slam_cfg=None):
+    """The sequence's IMU record and a `RadarGraphSLAM` on `device` loaded
+    with its gyro and twist streams; the flags set the config's loop
+    closure, preintegration and noise fields, and `floor` turns the floor
+    constraint on."""
+    from .pipeline.slam import RadarGraphSLAM, SLAMConfig
+
+    imu = np.load(src / "imu.npz")
+    base = slam_cfg if slam_cfg is not None else SLAMConfig()
+    slam = RadarGraphSLAM(
+        base._replace(
+            enable_loop_closure=not args.no_loops,
+            preint_mode=args.preint,
+            gyr_var=float(imu["gyr_var"]),
+            vel_var=float(imu["vel_var"]),
+            enable_floor_constraint=floor or base.enable_floor_constraint,
+        ),
+        device=device,
+    )
+    for t, g in zip(imu["gyr_t"], imu["gyr"]):
+        slam.push_imu(t, g)
+    for t, v in zip(imu["vel_t"], imu["vel"]):
+        slam.push_twist(t, v)
+    return imu, slam
+
+
+def _frames(src):
+    frames = sorted(src.glob("*.grf"))
+    if not frames:
+        sys.exit(f"no .grf frames in {src}")
+    return frames
 
 
 def cmd_slam(args):
@@ -111,9 +135,7 @@ def cmd_slam(args):
     from .io.native import NativePipelineDataset
     from .pipeline.odometry import OdometryConfig, ScanMatchingOdometry
     from .pipeline.preprocessing import PreprocessConfig
-    from .pipeline.slam import RadarGraphSLAM, SLAMConfig
 
-    _check_slam_flags(args)
     device = _device(args.device)
     # full-f32 matmuls on the card: TF32 would cost the 6x6 solves and the
     # H/b reductions what the TPU's bf16 passes cost them
@@ -121,27 +143,18 @@ def cmd_slam(args):
     torch.backends.cudnn.allow_tf32 = False
 
     src = Path(args.dataset)
-    frames = sorted(src.glob("*.grf"))
-    if not frames:
-        sys.exit(f"no .grf frames in {src}")
-    imu = np.load(src / "imu.npz")
-    slam = RadarGraphSLAM(
-        SLAMConfig(
-            enable_loop_closure=not args.no_loops,
-            preint_mode=args.preint,
-            gyr_var=float(imu["gyr_var"]),
-            vel_var=float(imu["vel_var"]),
-            enable_floor_constraint=args.floor,
-        ),
-        device=device,
-    )
-    for t, g in zip(imu["gyr_t"], imu["gyr"]):
-        slam.push_imu(t, g)
+    frames = _frames(src)
+    # the typed config tree: the flags override its `slam` and `odometry`
+    # fields, and `--preprocess` takes its `preprocess`
+    tree = None
+    if args.config:
+        from .config import load_config
+
+        tree = load_config(args.config)
+    imu, slam = _imu_and_slam(args, src, device, args.floor, tree.slam if tree else None)
     # twist stream: the dataset's samples when it ships them, else the
     # per-scan ego-velocity estimates below
     online_twists = imu["vel_t"].size == 0
-    for t, v in zip(imu["vel_t"], imu["vel"]):
-        slam.push_twist(t, v)
     gps_path = src / "gps.npz"
     if gps_path.exists() and not args.no_gps:
         gps_npz = np.load(gps_path)
@@ -149,9 +162,10 @@ def cmd_slam(args):
             slam.push_gps(float(t), xyz, cov=cov)
         print(f"pushed {len(gps_npz['t'])} GPS fixes")
 
-    odo = ScanMatchingOdometry(OdometryConfig(registration=args.registration))
+    odo_cfg = tree.odometry if tree else OdometryConfig()
+    odo = ScanMatchingOdometry(odo_cfg._replace(registration=args.registration))
     if args.preprocess:
-        odo.preprocess_cfg = PreprocessConfig()
+        odo.preprocess_cfg = tree.preprocess if tree else PreprocessConfig()
     gyr_t_arr, gyr_arr = np.asarray(imu["gyr_t"]), np.asarray(imu["gyr"])
 
     def omega_at(t):
@@ -276,7 +290,92 @@ def cmd_slam(args):
                 fh,
             )
         print(f"statuses: {args.status_out} ({len(odo.statuses)} frames)")
+    if args.dump:
+        slam.save(args.dump)
+    if args.map:
+        m = slam.generate_map(resolution=args.map_resolution)
+        xyz = m.xyz[m.mask].cpu().numpy()
+        np.savez(args.map, xyz=xyz)
+        print(f"map: {args.map} ({len(xyz)} points)")
     return slam, odo, timer
+
+
+def _warm_up(args, frames, slam, odo, device):
+    """Run two frames through a throwaway odometry and back end of the
+    same configuration before the clock starts: it builds and loads the
+    1-NN kernels and the native runtime, and creates the card's cuBLAS /
+    cuSOLVER handles, which the first streamed frame would pay for."""
+    from .io.native import NativeDataset
+    from .pipeline.odometry import ScanMatchingOdometry
+    from .pipeline.slam import RadarGraphSLAM
+
+    w = ScanMatchingOdometry(odo.cfg)
+    w.preprocess_cfg = odo.preprocess_cfg
+    wslam = RadarGraphSLAM(slam.cfg._replace(keyframe_delta_trans=0.0, keyframe_delta_angle=0.0),
+                           device=device, gyr_t=list(slam.gyr_t), gyr=list(slam.gyr),
+                           vel_t=list(slam.vel_t), vel=list(slam.vel))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    for stamp, xyz, inten, dop in NativeDataset(frames[:2], capacity=args.capacity):
+        packed = np.zeros((args.capacity, 5))
+        packed[: len(xyz)] = np.column_stack([xyz, inten, dop])
+        pose, _ = w.step_fused(float(stamp), torch.tensor(packed, device=device), len(xyz),
+                               ground=args.floor, omega=np.zeros(3) if args.preprocess else None,
+                               generator=gen)
+        wslam.add_frame(float(stamp), w.last_cloud, pose)
+    wslam.optimize()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def cmd_stream(args):
+    """Wall-clock streaming replay with backpressure and deadline accounting
+    (`bag_player.py` with `/read_until` flow control; see
+    `pipeline/streaming.py`). Pushes the dataset's gyro and twist streams,
+    no GPS, and, as `slam` does, each frame's ego velocity only where the
+    dataset ships no twist (the JAX CLI's `stream` pushes both). `--floor`
+    fits the ground in each frame, as the JAX CLI's `stream` does, and
+    leaves the back end's floor constraint off. Prints the report's JSON
+    line."""
+    from .pipeline.odometry import OdometryConfig, ScanMatchingOdometry
+    from .pipeline.preprocessing import PreprocessConfig
+    from .pipeline.streaming import stream_sequence
+
+    device = _device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    src = Path(args.dataset)
+    frames = _frames(src)
+    imu, slam = _imu_and_slam(args, src, device, floor=False)
+    odo = ScanMatchingOdometry(OdometryConfig(registration=args.registration))
+    if args.preprocess:
+        odo.preprocess_cfg = PreprocessConfig()
+    if args.warmup:
+        _warm_up(args, frames, slam, odo, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    report = stream_sequence(
+        frames, slam, odo, imu={"gyr_t": imu["gyr_t"], "gyr": imu["gyr"]},
+        rate_multiplier=args.rate_multiplier, mode=args.mode, queue_depth=args.queue_depth,
+        capacity=args.capacity, optimize_every=args.optimize_every,
+        optimize_window=args.optimize_window, ground=args.floor, generator=gen,
+    )
+    print(report.to_json())
+    if args.report_out:
+        with open(args.report_out, "w") as fh:
+            fh.write(report.to_json())
+    if args.output:
+        slam.optimize()
+        stamps, poses = slam.trajectory()
+        save_tum(args.output, stamps, poses)
+    return report, slam, odo
+
+
+def cmd_dump_config(args):
+    from .config import GorioConfig, save_config
+
+    save_config(GorioConfig(), args.output)
+    print(f"wrote {args.output}")
 
 
 def cmd_evaluate(args):
@@ -401,6 +500,29 @@ def main(argv=None):
     s.add_argument("--device", default="cuda", help="torch device (default cuda)")
     s.set_defaults(fn=cmd_slam)
 
+    s = sub.add_parser("stream")
+    s.add_argument("--dataset", required=True)
+    s.add_argument("--rate-multiplier", type=float, default=1.0,
+                   help="replay speed against the recording's clock (1.0 = real time)")
+    s.add_argument("--mode", default="block", choices=["block", "drop"],
+                   help="backpressure: block the producer (the /read_until contract) or "
+                        "drop the oldest queued frame (a live sensor)")
+    s.add_argument("--queue-depth", type=int, default=4)
+    s.add_argument("--capacity", type=int, default=2048)
+    s.add_argument("--registration", default="apdgicp", choices=["apdgicp", "gicp", "ndt"])
+    s.add_argument("--preint", default="lpm", choices=["lpm", "ugpm"])
+    s.add_argument("--preprocess", action="store_true")
+    s.add_argument("--floor", action="store_true")
+    s.add_argument("--no-loops", action="store_true")
+    s.add_argument("--optimize-every", type=int, default=0)
+    s.add_argument("--optimize-window", type=int, default=0)
+    s.add_argument("--warmup", action="store_true", default=True)
+    s.add_argument("--no-warmup", dest="warmup", action="store_false")
+    s.add_argument("--report-out", default=None)
+    s.add_argument("--output", default=None, help="final optimized TUM trajectory")
+    s.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    s.set_defaults(fn=cmd_stream)
+
     s = sub.add_parser("evaluate")
     s.add_argument("estimate")
     s.add_argument("groundtruth")
@@ -416,6 +538,10 @@ def main(argv=None):
     s.add_argument("--print-transform", action="store_true")
     s.add_argument("--device", default="cuda", help="torch device (default cuda)")
     s.set_defaults(fn=cmd_align)
+
+    s = sub.add_parser("dump-config")
+    s.add_argument("--output", default="gorio_config.json")
+    s.set_defaults(fn=cmd_dump_config)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -157,6 +157,18 @@ def segment_sum(x, bounds):
     return torch.segment_reduce(x, "sum", offsets=bounds, axis=0, unsafe=True)
 
 
+def segment_sum_by_id(x, ids, num_segments):
+    """`jax.ops.segment_sum` of the rows of `x` over unsorted int64 `ids`;
+    rows whose id is not in [0, num_segments) count nowhere. A stable sort
+    by id and a segmented reduction: each segment sums in row order, so
+    the card repeats to the bit (`index_add_` adds floats with atomics)."""
+    order = torch.argsort(ids, stable=True)
+    ids_s = ids[order]
+    bounds = torch.searchsorted(
+        ids_s, torch.arange(num_segments + 1, dtype=ids.dtype, device=ids.device))
+    return segment_sum(x[order], bounds)
+
+
 def segment_reduce(x, seg, num_segments, reduce, fill):
     """`jax.ops.segment_{max,min}` ("amax" / "amin") over a 1-D `x`; empty
     segments hold `fill`."""

@@ -20,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.pointcloud import PointCloud
+from ..core.pointcloud import PointCloud, segment_sum_by_id
 from ..registration.knn import knn
 
 _CHECK_EVERY = 8  # propagation rounds per host read of the `changed` flag
@@ -81,9 +81,8 @@ def dbscan_cluster(cloud: PointCloud, cfg: DBSCANConfig = DBSCANConfig()) -> Poi
     # centroid distance per cluster -> rank (`:538-566`); a stable sort puts
     # the lower cluster id first among equal distances, as XLA's does
     w = (labels < n).to(dtype)
-    cent = torch.zeros((n + 1, 3), dtype=dtype, device=device).index_add_(
-        0, labels, cloud.xyz * w[:, None])[:-1]
-    cnt = torch.zeros(n + 1, dtype=dtype, device=device).index_add_(0, labels, w)[:-1]
+    cent = segment_sum_by_id(cloud.xyz * w[:, None], labels, n)
+    cnt = segment_sum_by_id(w, labels, n)
     dist = torch.linalg.norm(cent / torch.clamp(cnt, min=1.0)[:, None], dim=-1)
     dist = torch.where(cnt > 0, dist, torch.full_like(dist, float("inf")))
     order = torch.sort(dist, stable=True).indices

@@ -6,8 +6,9 @@ Port of `gorio_tpu/estimators/groundseg.py`
   * CZM binning becomes a per-point (zone, ring, sector) -> patch id (Go-RIO's
     radar CZM: rings {4,4,2,2} x sectors {3,1,1,3} = 24 patches),
   * the per-patch R-GPF plane fits (`extract_piecewiseground`, `:1024-1127`)
-    are masked segment sums (`index_add_`) of the covariance and one batched
-    3x3 `eigh` over all patches, `num_iter` times (a repeated smallest
+    are masked segment sums of the covariance (sorted by patch and
+    segmented, so the card repeats them to the bit) and one batched 3x3
+    `eigh` over all patches, `num_iter` times (a repeated smallest
     eigenvalue gets a basis-free normal, `_eigh_smallest`),
   * seed selection (the lowest points of each patch) is a (P, N) masked
     `topk`,
@@ -20,10 +21,10 @@ Port of `gorio_tpu/estimators/groundseg.py`
 The A-GLE / TGR thresholds (`:894-1010`) ride in an explicit per-ring
 `AGLEState` that the caller threads through frames (`update_agle`).
 
-Everything runs in the cloud's dtype on its device. `index_add_` and
-cuSOLVER's `eigh` on the card round differently from XLA's `segment_sum`
-and LAPACK, so results on the card differ from the JAX package's in the
-last bits.
+Everything runs in the cloud's dtype on its device. The card's segmented
+sums and cuSOLVER's `eigh` round differently from XLA's `segment_sum` and
+LAPACK, so results on the card differ from the JAX package's in the last
+bits.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core.pointcloud import PointCloud
+from ..core.pointcloud import PointCloud, segment_sum_by_id
 from .covariances import polar_covariances
 
 
@@ -189,21 +190,15 @@ def _eigh_smallest(A):
     return evals, torch.where(simple, evecs[..., :, 0], canon)
 
 
-def _segment_sum(values, ids, n):
-    """Sum of `values` rows per id in [0, n) (`jax.ops.segment_sum`)."""
-    out = values.new_zeros((n,) + tuple(values.shape[1:]))
-    return out.index_add_(0, ids, values)
-
-
 def _plane_from_masked(xyz, w, pid, P):
     """Per-patch PCA plane of the weighted points: normal (P,3), d (P,),
     mean (P,3), count (P,), ascending covariance eigenvalues (P,3)."""
-    cnt = _segment_sum(w, pid, P + 1)[:P]
-    mean = _segment_sum(xyz * w[:, None], pid, P + 1)[:P]
+    cnt = segment_sum_by_id(w, pid, P + 1)[:P]
+    mean = segment_sum_by_id(xyz * w[:, None], pid, P + 1)[:P]
     mean = mean / torch.clamp(cnt, min=1.0)[:, None]
     centered = xyz - mean[torch.clamp(pid, 0, P - 1)]
     outer = centered[:, :, None] * centered[:, None, :] * w[:, None, None]
-    cov = _segment_sum(outer, pid, P + 1)[:P] / torch.clamp(cnt, min=1.0)[:, None, None]
+    cov = segment_sum_by_id(outer, pid, P + 1)[:P] / torch.clamp(cnt, min=1.0)[:, None, None]
     eye = torch.eye(3, dtype=xyz.dtype, device=xyz.device)
     evals, normal = _eigh_smallest(cov + 1e-12 * eye)
     normal = torch.where(normal[:, 2:3] < 0, -normal, normal)
@@ -289,9 +284,11 @@ def estimate_ground(cloud: PointCloud, cfg: GroundSegConfig = GroundSegConfig(),
         # temporal ground revert (`:952-1010`): per-ring mean/std of this
         # frame's stored flatness, sigmoid revert probability, line gate
         zero = torch.zeros_like(flat)
-        n_r = _segment_sum(stored.to(dtype), ring_roi, R)
-        f_mean = _segment_sum(torch.where(stored, flat, zero), ring_roi, R) / torch.clamp(n_r, min=1.0)
-        f_sq = _segment_sum(torch.where(stored, (flat - f_mean[ring_roi]) ** 2, zero), ring_roi, R)
+        n_r = segment_sum_by_id(stored.to(dtype), ring_roi, R)
+        f_mean = (segment_sum_by_id(torch.where(stored, flat, zero), ring_roi, R)
+                  / torch.clamp(n_r, min=1.0))
+        f_sq = segment_sum_by_id(
+            torch.where(stored, (flat - f_mean[ring_roi]) ** 2, zero), ring_roi, R)
         f_std = torch.sqrt(f_sq / torch.clamp(n_r - 1.0, min=1.0))
         mu_p = (f_mean + 1.5 * f_std)[ring_roi]  # `:980`
         prob_flat = 1.0 / (1.0 + torch.exp((flat - mu_p) / torch.clamp(mu_p / 10.0, min=1e-12)))
@@ -357,9 +354,11 @@ def update_agle(state: AGLEState, result: GroundSegResult,
     def ring_stats(vals):
         vals = vals.to(dtype)
         zero = torch.zeros_like(vals)
-        n_r = _segment_sum(stored.to(dtype), ring_roi, R)
-        m = _segment_sum(torch.where(stored, vals, zero), ring_roi, R) / torch.clamp(n_r, min=1.0)
-        sq = _segment_sum(torch.where(stored, (vals - m[ring_roi]) ** 2, zero), ring_roi, R)
+        n_r = segment_sum_by_id(stored.to(dtype), ring_roi, R)
+        m = (segment_sum_by_id(torch.where(stored, vals, zero), ring_roi, R)
+             / torch.clamp(n_r, min=1.0))
+        sq = segment_sum_by_id(
+            torch.where(stored, (vals - m[ring_roi]) ** 2, zero), ring_roi, R)
         return n_r, m, sq / torch.clamp(n_r, min=1.0)
 
     n_r, em, ev = ring_stats(result.patch_mean_z)

@@ -1,22 +1,26 @@
-"""Host-side pose-graph assembly.
+"""Host-side pose-graph assembly and g2o persistence.
 
-Port of `PoseGraph` from `gorio_tpu/graph/graph.py` (g2o persistence, the
-`--dump` surface, is not ported: ROADMAP A13): it accumulates pose and
-plane vertices and factors in Python lists, then `freeze()` packs the pose
-factors into fixed-capacity `GraphData` tensors and `freeze_planes()` the
-plane-vertex factors into `PlaneGraphData`, for the solvers. Capacities are
-bucketed to powers of two (>= 4), as in the JAX package, so graphs of
-similar size share shapes.
+Port of `PoseGraph` from `gorio_tpu/graph/graph.py`: it accumulates pose
+and plane vertices and factors in Python lists, then `freeze()` packs the
+pose factors into fixed-capacity `GraphData` tensors and `freeze_planes()`
+the plane-vertex factors into `PlaneGraphData`, for the solvers. Capacities
+are bucketed to powers of two (>= 4), as in the JAX package, so graphs of
+similar size share shapes. `save` / `load` write and read the JAX package's
+g2o text (`GraphSLAM::save`, `graph_slam.cpp:384-391`) with its
+robust-kernel sidecar (`robust_kernel_io.cpp`), so each package reads the
+other's files.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..core import lie
 from .factors import empty_graph, empty_plane_graph, to_tensors
 
 
@@ -40,6 +44,40 @@ def _sqrt_info(info, dim, dtype):
         return L.T.astype(dtype)
     except np.linalg.LinAlgError:
         return np.diag(np.sqrt(np.maximum(np.diag(info), 0.0))).astype(dtype)
+
+
+# g2o orders the 6-dof error [trans, rot]; ours is [rot, trans]
+_G2O_PERM = np.block([[np.zeros((3, 3)), np.eye(3)], [np.eye(3), np.zeros((3, 3))]])
+
+
+def _upper(info):
+    """The upper triangle of a symmetric matrix, row by row, as text."""
+    d = info.shape[0]
+    return " ".join(str(info[r, c]) for r in range(d) for c in range(r, d))
+
+
+def _from_upper(vals, d):
+    info = np.zeros((d, d))
+    r, c = np.triu_indices(d)
+    info[r, c] = vals
+    info[c, r] = vals
+    return info
+
+
+def _pose_text(T):
+    """g2o's `x y z qx qy qz qw` of a (4, 4) pose."""
+    q = lie.mat_to_quat(torch.as_tensor(np.asarray(T[:3, :3], np.float64))).numpy()
+    t = T[:3, 3]
+    return f"{t[0]} {t[1]} {t[2]} {q[1]} {q[2]} {q[3]} {q[0]}"
+
+
+def _pose_from(tok):
+    """The pose of g2o's seven numbers `x y z qx qy qz qw`."""
+    x = np.array(list(map(float, tok)))
+    T = np.eye(4)
+    T[:3, :3] = lie.quat_to_mat(torch.as_tensor(x[[6, 3, 4, 5]])).numpy()
+    T[:3, 3] = x[:3]
+    return T
 
 
 def _fill(rows):
@@ -221,3 +259,126 @@ class PoseGraph:
         _fill(rows)
         poses = torch.as_tensor(np.stack(self.poses).astype(self.dtype), device=device)
         return poses, to_tensors(g, device)
+
+    # ---- persistence (g2o text) -------------------------------------------
+    def save(self, path, poses=None):
+        """Write `VERTEX_SE3:QUAT` / `EDGE_SE3:QUAT` lines, the information
+        in g2o's [trans, rot] order; SE(3) priors as `GORIO_PRIOR_SE3`
+        lines, plane vertices (`VERTEX_PLANE`, ids after the poses') and
+        their factors as `GORIO_*` lines, and each robust kernel as one
+        `<tag> <ordinal> Huber <delta>` line of the `<path>.kernels`
+        sidecar (`save_robust_kernels`, `robust_kernel_io.cpp:45-80`)."""
+        ps = np.asarray(poses if poses is not None else self.poses)
+        K = len(ps)
+        lines, kernels = [], []
+        lines += [f"VERTEX_SE3:QUAT {k} {_pose_text(T)}" for k, T in enumerate(ps)]
+
+        def se3_info(sq):
+            return _upper(_G2O_PERM @ (sq.T @ sq) @ _G2O_PERM.T)
+
+        def write(families):
+            for tag, entries, text in families:
+                for ordinal, (*fields, rd) in enumerate(entries):
+                    lines.append(f"{tag} {text(*fields)}")
+                    if math.isfinite(rd):
+                        kernels.append(f"{tag} {ordinal} Huber {rd}")
+
+        write([
+            ("EDGE_SE3:QUAT", self._between,
+             lambda i, j, T, sq: f"{i} {j} {_pose_text(T)} {se3_info(sq)}"),
+            ("GORIO_PRIOR_SE3", self._priors,
+             lambda i, T, sq: f"{i} {_pose_text(T)} {se3_info(sq)}"),
+        ])
+        lines += [f"VERTEX_PLANE {K + m} {p[0]} {p[1]} {p[2]} {p[3]}"
+                  for m, p in enumerate(np.asarray(self.planes).reshape(-1, 4))]
+        write([
+            ("GORIO_PLANE_PRIOR", self._plane_priors,
+             lambda j, nm, dm, sq: f"{K + j} {nm[0]} {nm[1]} {nm[2]} {dm} {_upper(sq.T @ sq)}"),
+            ("GORIO_PLANE_PLANE", self._plane_plane,
+             lambda i, j, kind, m, sq: f"{K + i} {K + j} {kind} {m[0]} {m[1]} {m[2]} {m[3]} "
+                                       f"{_upper(sq.T @ sq)}"),
+            ("GORIO_SE3_PLANE", self._se3_plane,
+             lambda i, j, pm, sq: f"{i} {K + j} {pm[0]} {pm[1]} {pm[2]} {pm[3]} "
+                                  f"{_upper(sq.T @ sq)}"),
+            ("GORIO_SE3_Z", self._z_between,
+             lambda i, j, z, sq: f"{i} {j} {z} {float(sq[0, 0]) ** 2}"),
+            ("GORIO_SE3_GT_UTM", self._utm_align,
+             lambda i, pu, pw, sq: f"{i} {pu[0]} {pu[1]} {pu[2]} {pw[0]} {pw[1]} {pw[2]} "
+                                   f"{_upper(sq.T @ sq)}"),
+        ])
+        with open(path, "w") as fh:
+            fh.write("".join(line + "\n" for line in lines))
+        if kernels:
+            with open(str(path) + ".kernels", "w") as fh:
+                fh.write("".join(line + "\n" for line in kernels))
+
+    @classmethod
+    def load(cls, path, dtype=np.float64):
+        """Read what `save` writes (either package's), re-applying the robust
+        kernels of the `<path>.kernels` sidecar (`load_robust_kernels`,
+        `robust_kernel_io.cpp:84-128`). The graph stays on the host until
+        `freeze(device=...)`."""
+        g = cls(dtype=dtype)
+        kernels = {}
+        sidecar = Path(str(path) + ".kernels")
+        if sidecar.exists():
+            for line in sidecar.read_text().splitlines():
+                tok = line.split()
+                if len(tok) == 4:
+                    kernels[(tok[0], int(tok[1]))] = float(tok[3])
+        verts, plane_verts = {}, {}
+        rows = {tag: [] for tag in ("EDGE_SE3:QUAT", "GORIO_PRIOR_SE3", "GORIO_PLANE_PRIOR",
+                                    "GORIO_PLANE_PLANE", "GORIO_SE3_PLANE", "GORIO_SE3_Z",
+                                    "GORIO_SE3_GT_UTM")}
+        for line in Path(path).read_text().splitlines():
+            tok = line.split()
+            if not tok:
+                continue
+            if tok[0] == "VERTEX_SE3:QUAT":
+                verts[int(tok[1])] = _pose_from(tok[2:9])
+            elif tok[0] == "VERTEX_PLANE":
+                plane_verts[int(tok[1])] = np.array(list(map(float, tok[2:6])))
+            elif tok[0] in rows:
+                rows[tok[0]].append(tok[1:])
+
+        def robust(tag, ordinal):
+            return kernels.get((tag, ordinal), math.inf)
+
+        def sqrt_se3(vals):
+            return _sqrt_info(_G2O_PERM.T @ _from_upper(vals, 6) @ _G2O_PERM, 6, dtype)
+
+        def sqrt_upper(vals, d):
+            return _sqrt_info(_from_upper(vals, d), d, dtype)
+
+        for k in sorted(verts):
+            g.poses.append(verts[k])
+        K = len(g.poses)  # plane ids follow the pose ids
+        for k in sorted(plane_verts):
+            g.planes.append(plane_verts[k].astype(dtype))
+        for n, t in enumerate(rows["EDGE_SE3:QUAT"]):
+            g._between.append((int(t[0]), int(t[1]), _pose_from(t[2:9]),
+                               sqrt_se3(list(map(float, t[9:30]))), robust("EDGE_SE3:QUAT", n)))
+        for n, t in enumerate(rows["GORIO_PRIOR_SE3"]):
+            g._priors.append((int(t[0]), _pose_from(t[1:8]), sqrt_se3(list(map(float, t[8:29]))),
+                              robust("GORIO_PRIOR_SE3", n)))
+        for n, t in enumerate(rows["GORIO_PLANE_PRIOR"]):
+            v = list(map(float, t[1:]))
+            g._plane_priors.append((int(t[0]) - K, np.array(v[:3]), v[3], sqrt_upper(v[4:14], 4),
+                                    robust("GORIO_PLANE_PRIOR", n)))
+        for n, t in enumerate(rows["GORIO_PLANE_PLANE"]):
+            v = list(map(float, t[3:]))
+            g._plane_plane.append((int(t[0]) - K, int(t[1]) - K, int(t[2]), np.array(v[:4]),
+                                   sqrt_upper(v[4:14], 4), robust("GORIO_PLANE_PLANE", n)))
+        for n, t in enumerate(rows["GORIO_SE3_PLANE"]):
+            v = list(map(float, t[2:]))
+            g._se3_plane.append((int(t[0]), int(t[1]) - K, np.array(v[:4]), sqrt_upper(v[4:10], 3),
+                                 robust("GORIO_SE3_PLANE", n)))
+        for n, t in enumerate(rows["GORIO_SE3_Z"]):
+            g._z_between.append((int(t[0]), int(t[1]), float(t[2]),
+                                 np.array([[math.sqrt(float(t[3]))]], dtype),
+                                 robust("GORIO_SE3_Z", n)))
+        for n, t in enumerate(rows["GORIO_SE3_GT_UTM"]):
+            v = list(map(float, t[1:]))
+            g._utm_align.append((int(t[0]), np.array(v[:3]), np.array(v[3:6]),
+                                 sqrt_upper(v[6:12], 3), robust("GORIO_SE3_GT_UTM", n)))
+        return g

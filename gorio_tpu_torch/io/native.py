@@ -1,8 +1,9 @@
 """ctypes binding of the native `.grf` runtime (`native/src/*.cc`).
 
 The port's own copy of the parts of `gorio_tpu/io/native.py` that its CLI
-calls: `write_frame` (one `.grf` radar frame) and `NativePipelineDataset`
-(the two-thread decode -> pack reader). The C++ sources stay where they are;
+calls: `write_frame` (one `.grf` radar frame), `NativeDataset` (the
+prefetching single-stage reader) and `NativePipelineDataset` (the two-thread
+decode -> pack reader). The C++ sources stay where they are;
 `load()` compiles them with g++ at first use into `gorio_tpu_torch/_build/`
 (gitignored, file name tagged by the sources' content) and binds them.
 """
@@ -71,7 +72,17 @@ def load():
         lib.gorio_pipeline_dataset_next.argtypes = [
             P, ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_double),
         ]
+        lib.gorio_pipeline_dataset_backlog.restype = I
+        lib.gorio_pipeline_dataset_backlog.argtypes = [P, I]
         lib.gorio_pipeline_dataset_close.argtypes = [P]
+        lib.gorio_dataset_open.restype = P
+        lib.gorio_dataset_open.argtypes = [ctypes.POINTER(ctypes.c_char_p), I, I]
+        lib.gorio_dataset_next.restype = I
+        lib.gorio_dataset_next.argtypes = [
+            P, ctypes.POINTER(ctypes.c_float), ctypes.c_uint32, ctypes.c_uint32,
+            ctypes.POINTER(ctypes.c_double),
+        ]
+        lib.gorio_dataset_close.argtypes = [P]
         _LIB = lib
     return _LIB
 
@@ -91,6 +102,47 @@ def write_frame(path, stamp: float, xyz, intensity=None, doppler=None):
     )
     if rc != 0:
         raise IOError(f"failed to write {path}")
+
+
+class NativeDataset:
+    """Prefetching single-stage reader yielding (stamp, xyz (n, 3),
+    intensity (n,), doppler (n,)), float32 copies of the frame's rows."""
+
+    def __init__(self, paths, capacity: int = 4096, queue_depth: int = 4):
+        lib = load()
+        self._lib = lib
+        self.capacity = capacity
+        enc = [str(p).encode() for p in paths]
+        arr = (ctypes.c_char_p * len(enc))(*enc)
+        self._handle = lib.gorio_dataset_open(arr, len(enc), queue_depth)
+        self._buf = np.empty((capacity, FIELDS), np.float32)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        stamp = ctypes.c_double()
+        while True:
+            n = self._lib.gorio_dataset_next(
+                self._handle, self._buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                self.capacity, FIELDS, ctypes.byref(stamp),
+            )
+            if n == 0:
+                raise StopIteration
+            if n == -2:  # valid frame, zero returns (sensor dropout) — skip
+                continue
+            if n < 0:
+                raise IOError("corrupt frame")
+            data = self._buf[:n].copy()
+            return stamp.value, data[:, :3], data[:, 3], data[:, 4]
+
+    def close(self):
+        if getattr(self, "_handle", None):
+            self._lib.gorio_dataset_close(self._handle)
+            self._handle = None
+
+    def __del__(self):
+        self.close()
 
 
 class NativePipelineDataset:
@@ -125,6 +177,10 @@ class NativePipelineDataset:
             if n < 0:
                 raise IOError("corrupt frame")
             return stamp.value, n, self._buf
+
+    def backlog(self, stage: int = 0) -> int:
+        """Items waiting in the native pipeline's bounded queue `stage`."""
+        return int(self._lib.gorio_pipeline_dataset_backlog(self._handle, stage))
 
     def close(self):
         if getattr(self, "_handle", None):

@@ -5,10 +5,7 @@ function.
 Port of `gorio_tpu/pipeline/preprocessing.py`
 (`PreprocessingNodelet::cloud_callback`, `preprocessing_nodelet_ntu.cpp:
 370-579`): masked tensor ops on the fixed-capacity cloud; the caller threads
-the A-GLE state between frames. The statistical / radius outlier filters
-(`estimators/outliers.py`) are not ported yet (ROADMAP A10-outliers) and are
-refused rather than skipped; the default `outlier_method="none"` needs
-neither.
+the A-GLE state between frames.
 """
 
 from __future__ import annotations
@@ -22,6 +19,7 @@ from ..estimators.clustering import DBSCANConfig, dbscan_cluster
 from ..estimators.deskew import deskew
 from ..estimators.egovel import EgoVelConfig, EgoVelResult, estimate_ego_velocity
 from ..estimators.groundseg import AGLEState, GroundSegConfig, estimate_ground, update_agle
+from ..estimators.outliers import radius_outlier_removal, statistical_outlier_removal
 
 
 class PreprocessConfig(NamedTuple):
@@ -31,7 +29,7 @@ class PreprocessConfig(NamedTuple):
     min_z: float = -40.0
     max_z: float = 100.0
     # statistical / radius outlier removal (`:153-172`, applied `:626`)
-    outlier_method: str = "none"  # "none" here; "statistical" | "radius": A10-outliers
+    outlier_method: str = "none"  # "none" | "statistical" | "radius"
     statistical_mean_k: int = 20
     statistical_stddev: float = 1.0
     radius_radius: float = 2.0
@@ -53,14 +51,6 @@ class ProcessedFrame(NamedTuple):
     plane: torch.Tensor
 
 
-def check_supported(cfg: PreprocessConfig):
-    """Raise for the parts of the config that need an unported module."""
-    if cfg.outlier_method != "none":
-        raise NotImplementedError(
-            f"outlier_method={cfg.outlier_method!r} (estimators/outliers.py) is not ported yet "
-            "(ROADMAP A10-outliers)")
-
-
 def preprocess_frame(
     cloud: PointCloud,
     omega,
@@ -72,10 +62,13 @@ def preprocess_frame(
     """Returns (ProcessedFrame, new_agle). `omega` is the latest gyro sample
     (for deskew); `generator` (or the explicit hypotheses `hyp_idx`) seeds
     the ego-velocity RANSAC."""
-    check_supported(cfg)
-    # power + distance gates (`:381-412`, `:639`)
+    # power + distance gates (`:381-412`, `:639`), then outlier removal (`:626`)
     cloud = filter_cloud(cloud, cloud.intensity > cfg.power_threshold)
     cloud = distance_filter(cloud, cfg.min_distance, cfg.max_distance, cfg.min_z, cfg.max_z)
+    if cfg.outlier_method == "statistical":
+        cloud = statistical_outlier_removal(cloud, cfg.statistical_mean_k, cfg.statistical_stddev)
+    elif cfg.outlier_method == "radius":
+        cloud = radius_outlier_removal(cloud, cfg.radius_radius, cfg.radius_min_neighbors)
 
     ego = estimate_ego_velocity(cloud, cfg.egovel, generator=generator, hyp_idx=hyp_idx)
     if cfg.enable_dynamic_object_removal:

@@ -10,18 +10,27 @@ vertex observed by every keyframe with an accepted ground fit) and its LM
 solve: dense up to `solve_dense_max_dim` stacked pose dimensions,
 block-sparse direct (tridiagonal + Woodbury, with a Schur step for the
 plane) above. The graph is built on the host and solved on `device`, the
-card unless the caller asks for the CPU.
+card unless the caller asks for the CPU. The outputs: the trajectory, the
+graph and keyframes dumped to a directory (`save`), the voxelised map
+(`generate_map`) and the markers' JSON (`export_markers`).
+
+`optimize` may run on a worker thread while another thread ingests frames
+and measurements (`pipeline/streaming.py`): it snapshots the keyframe list
+up front, and one lock guards the GPS queue's appends and its consumption.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import threading
 from dataclasses import dataclass, field
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..core.pointcloud import PointCloud
+from ..core.pointcloud import PointCloud, make_cloud, voxel_downsample
 from ..graph.graph import PoseGraph
 from ..graph.solver import SolveConfig, optimize_graph, optimize_graph_with_planes
 from ..graph.sparse import optimize_graph_sparse, optimize_graph_with_planes_sparse
@@ -103,6 +112,7 @@ class RadarGraphSLAM:
     floor_plane: Optional[np.ndarray] = None  # optimized world floor [n, d]
     _last_gps_edge_index: int = -(10**9)
     _loop_checked_upto: int = 0
+    _gps_lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
     def __post_init__(self):
         if self.cfg.preint_mode not in ("lpm", "ugpm"):
@@ -131,9 +141,9 @@ class RadarGraphSLAM:
         self.vel.append(np.asarray(vel))
 
     def push_gps(self, t: float, xyz, has_z: bool = True, cov=None):
-        self.gps_queue.append(
-            GPSMeasurement(t, np.asarray(xyz), has_z, None if cov is None else np.asarray(cov))
-        )
+        fix = GPSMeasurement(t, np.asarray(xyz), has_z, None if cov is None else np.asarray(cov))
+        with self._gps_lock:
+            self.gps_queue.append(fix)
 
     # ---- keyframe path (`cloud_handler_callback`, `:626-743`) ------------
     def add_frame(
@@ -219,16 +229,19 @@ class RadarGraphSLAM:
         gate chain (`flush_gps_queue`, `radar_graph_slam_nodelet.cpp:
         1248-1327`): keyframe spacing, closest fix within 0.2 s, covariance
         gate, one `utm_coord` per keyframe, and the 5 m drift gate. Consumed
-        fixes older than the newest keyframe are dropped."""
-        if not self.gps_queue or not keyframes:
+        fixes older than the newest keyframe are dropped; a fix pushed while
+        this runs stays queued."""
+        with self._gps_lock:
+            queue = list(self.gps_queue)
+        if not queue or not keyframes:
             return
         cfg = self.cfg
-        q_stamps = np.asarray([g.stamp for g in self.gps_queue])
+        q_stamps = np.asarray([g.stamp for g in queue])
         last_idx = self._last_gps_edge_index
         for kf in keyframes:
             if kf.index - last_idx < cfg.gps_edge_intervals or kf.utm_coord is not None:
                 continue
-            gps = self.gps_queue[int(np.argmin(np.abs(q_stamps - kf.stamp)))]
+            gps = queue[int(np.argmin(np.abs(q_stamps - kf.stamp)))]
             if abs(gps.stamp - kf.stamp) > 0.2:
                 continue
             if gps.cov is not None:
@@ -253,7 +266,8 @@ class RadarGraphSLAM:
             last_idx = kf.index
         self._last_gps_edge_index = last_idx
         newest = keyframes[-1].stamp
-        self.gps_queue = [g for g in self.gps_queue if g.stamp > newest]
+        with self._gps_lock:
+            self.gps_queue = [g for g in self.gps_queue if g.stamp > newest]
 
     # ---- optimization cycle (`optimization_timer_callback`, `:750-834`) --
     def optimize(self, window: Optional[int] = None) -> Optional[np.ndarray]:
@@ -399,3 +413,57 @@ class RadarGraphSLAM:
             ]
         )
         return stamps, poses
+
+    def export_markers(self, path: str):
+        """Nodes, odometry edges and loops as JSON (the rviz MarkerArray of
+        `radar_graph_slam_nodelet.cpp:885-1121`), for outside viewers."""
+        stamps, poses = self.trajectory()
+        data = {
+            "nodes": [
+                {"id": int(kf.index), "stamp": float(s), "position": p[:3, 3].tolist()}
+                for kf, s, p in zip(self.keyframes, stamps, poses)
+            ],
+            "edges": [
+                {"from": k - 1, "to": k, "type": "odometry"}
+                for k in range(1, len(self.keyframes))
+            ],
+            "loops": [
+                {"from": int(l.key_old), "to": int(l.key_new), "fitness": float(l.fitness)}
+                for l in self.loops
+            ],
+            # the candidate search sphere (`:1114`, the reference's only use
+            # of distance_thresh)
+            "loop_search_radius": float(self.cfg.loop.distance_thresh) * 2.0,
+        }
+        with open(path, "w") as fh:
+            json.dump(data, fh, indent=1)
+
+    def save(self, directory: str):
+        """The graph (`graph.g2o`) and one directory per keyframe (the
+        `DumpGraph` service, `:1129-1208`)."""
+        os.makedirs(directory, exist_ok=True)
+        g = PoseGraph()
+        for kf in self.keyframes:
+            g.add_pose(kf.optimized_pose if kf.optimized_pose is not None else kf.odom_scan2scan)
+        for k in range(1, len(self.keyframes)):
+            prev, curr = self.keyframes[k - 1], self.keyframes[k]
+            g.add_between(k - 1, k, np.linalg.inv(prev.odom_scan2scan) @ curr.odom_scan2scan,
+                          info=np.eye(6))
+        g.save(os.path.join(directory, "graph.g2o"))
+        for kf in self.keyframes:
+            kf.save(os.path.join(directory, f"{kf.index:06d}"))
+
+    def generate_map(self, resolution: float = 0.1, max_range: float = 50.0) -> PointCloud:
+        """The keyframe clouds' points within `max_range`, moved by their
+        poses and voxel-downsampled at `resolution` (`MapCloudGenerator::
+        generate`), in float64 on the clouds' device; capacity = the point
+        count."""
+        pts = []
+        for kf in self.keyframes:
+            T = kf.optimized_pose if kf.optimized_pose is not None else kf.odom_scan2scan
+            xyz = kf.cloud.xyz.to(torch.float64)
+            keep = kf.cloud.mask & (torch.linalg.norm(xyz, dim=-1) < max_range)
+            T = torch.as_tensor(T, dtype=torch.float64, device=xyz.device)
+            pts.append(xyz[keep] @ T[:3, :3].T + T[:3, 3])
+        allpts = torch.cat(pts)
+        return voxel_downsample(make_cloud(allpts), resolution, capacity=allpts.shape[0])

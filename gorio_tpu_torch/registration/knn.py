@@ -1,6 +1,6 @@
 """Brute-force nearest-neighbour search, blocked over queries.
 
-Port of `nn1`, `knn` and `rbf_covariances` from
+Port of `nn1`, `knn`, `radius_count` and `rbf_covariances` from
 `gorio_tpu/registration/knn.py`. Distances are
 the direct sum of squared coordinate differences (the JAX package expands
 |q|^2 + |r|^2 - 2 q.r for its matrix unit; the direct form has no
@@ -69,6 +69,19 @@ def knn(query, ref, k: int, ref_mask=None, block: int = 512):
         d2_parts.append(vals)
     idx, d2 = torch.cat(idx_parts, dim=1), torch.cat(d2_parts, dim=1)
     return (idx[0], d2[0]) if squeeze else (idx, d2)
+
+
+def radius_count(query, ref, radius, ref_mask=None, block: int = 1024):
+    """Number of valid refs within `radius` of each query (.., N) int32,
+    the query itself counted where it is a ref (`pcl::RadiusOutlierRemoval`'s
+    radiusSearch, exact)."""
+    q, r, bias, squeeze = _prepare(query, ref, ref_mask)
+    r2 = float(radius) ** 2
+    parts = [torch.sum(_block_dists(q[:, s : s + block], r, bias) <= r2, dim=-1,
+                       dtype=torch.int32)
+             for s in range(0, q.shape[1], block)]
+    cnt = torch.cat(parts, dim=1) if parts else q.new_zeros(q.shape[:2], dtype=torch.int32)
+    return cnt[0] if squeeze else cnt
 
 
 def rbf_covariances(xyz, mask=None, kernel_width: float = 0.25, max_dist: float = 3.0,

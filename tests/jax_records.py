@@ -4,6 +4,10 @@ package's own run on the same input:
 
   python tests/jax_records.py scan-to-map SEQ   # scan-to-submap odometry
   python tests/jax_records.py align DIR         # the align pair, 8 methods
+  python tests/jax_records.py slice-map SEQ OUT    # `slam --map` of the slice
+  python tests/jax_records.py candidates {jax,torch} SEQ OUT.json
+  python tests/jax_records.py candidates-diff JAX.json TORCH.json
+  python tests/jax_records.py verify-pairs SEQ TUM NEW:OLD [NEW:OLD ...]
 
 `scan-to-map` runs `ScanMatchingOdometry(OdometryConfig(
 enable_scan_to_map=True, registration=r))` for r in ndt and apdgicp over a
@@ -18,8 +22,25 @@ the source moved by a z-rotation of 0.02 rad and [0.3, 0.1, 0] m, plus
 CLI's `align` does (0.1 m leaf, float32, NDT at resolution 2.0), printing
 each method's error against the known transform.
 
+`slice-map` runs the JAX CLI's default `slam` (loops on) on SEQ with
+`--map OUT/map.npz --output OUT/est.tum` and prints the map's point count
+and bounds (the 0.2 m voxel map of the keyframe clouds within 50 m).
+
+`candidates` runs one package's `slam --optimize-every 15` on a sequence
+(the circuit: `simulate --duration 75 --rate 5 --seed 22 --circuit --laps
+2 --dynamic 2`; the port with `--device cpu`) and writes its loop
+detector's gate counts, its `candidate_log` with each verified pair's
+convergence flag, and the (new, old) pair of every gated fallback match to
+OUT.json; `candidates-diff` prints the pairs on which two such files differ.
+`verify-pairs` runs both packages' loop verification (`_verify_batch`,
+coarse then fine APDGICP from both seeds, the loop detector's default
+configs) on keyframe pairs of a sequence, from the same inputs: the
+keyframe clouds as the unfused CLI builds them (float32, capacity 2048) and
+the relative pose of TUM's keyframe poses as the seed; each pair alone and
+all pairs in one batch, printing each lane's convergence flag and fitness.
+
 Run with `PYTHONPATH= JAX_PLATFORMS=cpu` from the repository root; the
-scan-to-map record needs `JAX_ENABLE_X64=1`.
+scan-to-map and candidates records need `JAX_ENABLE_X64=1`.
 """
 
 from __future__ import annotations
@@ -111,5 +132,142 @@ def align(out):
                           "s": time.perf_counter() - t0}), flush=True)
 
 
+def slice_map(seq, out):
+    import jax
+
+    from gorio_tpu.cli import main
+
+    assert jax.config.jax_enable_x64, "run with JAX_ENABLE_X64=1"
+    out = Path(out)
+    out.mkdir(parents=True, exist_ok=True)
+    main(["slam", "--dataset", str(seq), "--output", str(out / "est.tum"), "--map",
+          str(out / "map.npz")])
+    xyz = np.load(out / "map.npz")["xyz"]
+    print(json.dumps({"points": len(xyz), "min": xyz.min(axis=0).tolist(),
+                      "max": xyz.max(axis=0).tolist()}))
+
+
+def candidates(pkg, seq, out):
+    """One package's circuit run with its loop detector's diagnostics."""
+    if pkg == "jax":
+        import jax
+
+        import gorio_tpu.cli as cli
+        import gorio_tpu.loopclosure.loop_detector as det_mod
+        import gorio_tpu.pipeline.slam as slam_mod
+
+        assert jax.config.jax_enable_x64, "run with JAX_ENABLE_X64=1"
+    else:
+        import gorio_tpu_torch.cli as cli
+        import gorio_tpu_torch.loopclosure.loop_detector as det_mod
+        import gorio_tpu_torch.pipeline.slam as slam_mod
+    fallbacks = []
+    count = det_mod.LoopDetector._count
+
+    def recording_count(self, reason, n=1):
+        # the caller's frame names the pair: the keyframe `idxs[k]` and the
+        # gated match `mm`; the convergence flag follows the log entry
+        f = sys._getframe(1).f_locals
+        if reason == "gated_fallback_match":
+            fallbacks.append([int(f["idxs"][f["k"]]), int(f["mm"])])
+        elif reason == "not_converged":
+            self.candidate_log[-1]["not_converged"] = True
+        count(self, reason, n)
+
+    made = []
+
+    class Caught(slam_mod.RadarGraphSLAM):
+        def __post_init__(self):
+            super().__post_init__()
+            made.append(self)
+
+    det_mod.LoopDetector._count = recording_count
+    slam_mod.RadarGraphSLAM = Caught
+    args = ["slam", "--dataset", str(seq), "--output", str(Path(out).with_suffix(".tum")),
+            "--optimize-every", "15"]
+    t0 = time.perf_counter()
+    cli.main(args + (["--device", "cpu"] if pkg == "torch" else []))
+    det = made[0].loop_detector
+    Path(out).write_text(json.dumps({
+        "gate_counts": det.gate_counts, "candidate_log": det.candidate_log,
+        "fallbacks": fallbacks, "loops": [[int(l.key_new), int(l.key_old)]
+                                          for l in made[0].loops],
+        "s": time.perf_counter() - t0}))
+
+
+def verify_pairs(seq, tum, *pairs):
+    """Both packages' `_verify_batch` on the same inputs, alone and batched."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    import gorio_tpu.loopclosure.loop_detector as jl
+    import gorio_tpu_torch.loopclosure.loop_detector as tl
+    from gorio_tpu.core.pointcloud import make_cloud as jmake
+    from gorio_tpu.io import native
+    from gorio_tpu.io.tum import load_tum
+    from gorio_tpu_torch.core.pointcloud import make_cloud as tmake
+
+    assert jax.config.jax_enable_x64, "run with JAX_ENABLE_X64=1"
+    stamps, poses = load_tum(tum)
+    pairs = [tuple(int(k) for k in p.split(":")) for p in pairs]
+    keys = sorted({k for p in pairs for k in p})
+    frames = {}
+    for stamp, n, packed in native.NativePipelineDataset(sorted(Path(seq).glob("*.grf")),
+                                                         capacity=2048):
+        hit = np.flatnonzero(np.isclose(stamps[keys], stamp, atol=1e-6))
+        if hit.size:
+            frames[keys[hit[0]]] = np.array(packed[:n])
+    jc = {k: jmake(jnp.asarray(f[:, :3]), intensity=jnp.asarray(f[:, 3]),
+                   doppler=jnp.asarray(f[:, 4]), capacity=2048) for k, f in frames.items()}
+    tc = {k: tmake(torch.as_tensor(f[:, :3]), intensity=torch.as_tensor(f[:, 3]),
+                   doppler=torch.as_tensor(f[:, 4]), capacity=2048) for k, f in frames.items()}
+    jdet, tdet = jl.LoopDetector(), tl.LoopDetector(device="cpu")
+    jcoarse = jdet.gicp_cfg._replace(max_correspondence_distance=jdet.cfg.coarse_corr_dist)
+    for batch in [[p] for p in pairs] + [pairs]:
+        init = np.stack([np.linalg.inv(poses[m]) @ poses[i] for i, m in batch])
+        pad = max(2, 1 << (len(batch) - 1).bit_length()) - len(batch)  # the JAX padding
+        jb = batch + [batch[0]] * pad
+        jinit = np.concatenate([init, init[:1].repeat(pad, 0)])
+        js = jax.tree.map(lambda *x: jnp.stack(x), *[jc[i] for i, _ in jb])
+        jt = jax.tree.map(lambda *x: jnp.stack(x), *[jc[m] for _, m in jb])
+        _, jconv, _, jfit = jl._verify_batch(js, jt, jnp.asarray(jinit), jdet.gicp_cfg,
+                                             jcoarse, jdet.info_cfg)
+        _, tconv, _, tfit, _ = tl._verify_batch(
+            tl._stack([tc[i] for i, _ in batch]), tl._stack([tc[m] for _, m in batch]),
+            torch.as_tensor(init), tdet.gicp_cfg, tdet._coarse_cfg(), tdet.info_cfg)
+        for n, pair in enumerate(batch):
+            print(json.dumps({"batch": [list(p) for p in batch], "pair": list(pair),
+                              "jax_converged": bool(jconv[n]), "jax_fitness": float(jfit[n]),
+                              "torch_converged": bool(tconv[n]),
+                              "torch_fitness": float(tfit[n])}), flush=True)
+
+
+def candidates_diff(a, b):
+    """Print where two `candidates` records differ."""
+    ra, rb = (json.loads(Path(p).read_text()) for p in (a, b))
+    print("gate counts differ:", {k: (ra["gate_counts"].get(k), rb["gate_counts"].get(k))
+                                  for k in set(ra["gate_counts"]) | set(rb["gate_counts"])
+                                  if ra["gate_counts"].get(k) != rb["gate_counts"].get(k)})
+    fa, fb = ({tuple(x) for x in r["fallbacks"]} for r in (ra, rb))
+    print("gated fallback matches only in the first:", sorted(fa - fb))
+    print("gated fallback matches only in the second:", sorted(fb - fa))
+    la, lb = ({(c["new"], c["old"]): c for c in r["candidate_log"]} for r in (ra, rb))
+    for pair in sorted(set(la) | set(lb)):
+        ca, cb = la.get(pair), lb.get(pair)
+        if (ca is None or cb is None or ca["gate"] != cb["gate"]
+                or ca.get("not_converged") != cb.get("not_converged")):
+            print("verified pair", pair, "first:", ca, "second:", cb)
+    print("loops equal:", ra["loops"] == rb["loops"])
+
+
 if __name__ == "__main__":
-    {"scan-to-map": scan_to_map, "align": align}[sys.argv[1]](sys.argv[2])
+    if sys.argv[1] == "candidates":
+        candidates(*sys.argv[2:5])
+    elif sys.argv[1] == "candidates-diff":
+        candidates_diff(*sys.argv[2:4])
+    elif sys.argv[1] == "verify-pairs":
+        verify_pairs(*sys.argv[2:])
+    else:
+        {"scan-to-map": scan_to_map, "align": align, "slice-map": slice_map}[sys.argv[1]](
+            *sys.argv[2:])

@@ -332,12 +332,59 @@ def test_preprocess_frame_matches_jax(drive, deskew_omega):
 
 
 @pytest.mark.parametrize("method", ["statistical", "radius"])
-def test_unported_outlier_filters_raise(drive, method):
-    """The outlier filters (`estimators/outliers.py`) are not ported: asked
-    for, the chain refuses instead of skipping them."""
-    cfg = tpp.PreprocessConfig(outlier_method=method)
-    with pytest.raises(NotImplementedError, match="A10-outliers"):
-        tpp.preprocess_frame(cloud_from_numpy(drive[0][0][1]), torch.zeros(3), cfg)
+def test_preprocess_with_outlier_filter_matches_jax(drive, method):
+    """The chain with the statistical or radius outlier filter after the
+    gates (`estimators/outliers.py`), on the hypotheses the JAX package
+    draws from the filtered cloud: the same masks, ids and plane."""
+    from gorio_tpu.estimators import outliers as jol
+
+    jcfg = jpp.PreprocessConfig(outlier_method=method)
+    tcfg = config_from_dict(tpp.PreprocessConfig, jcfg._asdict())
+    cloud = drive[0][3][1]
+    key = jax.random.PRNGKey(3)
+    want, _ = jpp.preprocess_frame(cloud, jnp.zeros(3), jcfg, key=key)
+    c = jpc.filter_cloud(cloud, cloud.intensity > jcfg.power_threshold)
+    c = jpc.distance_filter(c, jcfg.min_distance, jcfg.max_distance, jcfg.min_z, jcfg.max_z)
+    c = (jol.statistical_outlier_removal(c, jcfg.statistical_mean_k, jcfg.statistical_stddev)
+         if method == "statistical"
+         else jol.radius_outlier_removal(c, jcfg.radius_radius, jcfg.radius_min_neighbors))
+    assert int(jnp.sum(c.mask)) < int(jnp.sum(jpc.distance_filter(
+        cloud, jcfg.min_distance, jcfg.max_distance, jcfg.min_z, jcfg.max_z).mask))
+    got, _ = tpp.preprocess_frame(cloud_from_numpy(cloud), torch.zeros(3, dtype=torch.float64),
+                                  tcfg, hyp_idx=_jax_hypotheses(c, jcfg.egovel, key))
+    _assert_cloud(got.cloud, want.cloud)
+    np.testing.assert_array_equal(got.ground_mask.numpy(), np.asarray(want.ground_mask))
+    ang, off = _plane_gap(got.plane.numpy(), want.plane)
+    assert ang < 1e-9 and off < 1e-9
+
+
+@pytest.mark.cuda
+def test_frontend_sums_repeat_to_the_bit_on_the_card(drive):
+    """Ground segmentation and DBSCAN sum floats per patch / cluster with a
+    sorted, segmented reduction, not atomics: two runs on one scan on the
+    card are bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cloud = cloud_from_numpy(drive[0][3][1], device="cuda")
+    for run in (lambda: tgs.estimate_ground(cloud, tgs.GroundSegConfig()),
+                lambda: tcl.dbscan_cluster(cloud, tcl.DBSCANConfig())):
+        first, again = run(), run()
+        for f, a, b in zip(first._fields, first, again):
+            if isinstance(a, torch.Tensor):
+                assert a.device.type == "cuda" and torch.equal(a, b), f
+
+
+def test_segment_sum_by_id_matches_index_add():
+    """The sorted segmented sum equals `index_add_` on the CPU (rows in row
+    order per id) for 1-D and matrix rows; ids outside [0, n) count nowhere."""
+    g = torch.Generator().manual_seed(0)
+    ids = torch.randint(-1, 9, (500,), generator=g)
+    for shape in ((500,), (500, 3, 3)):
+        x = torch.randn(shape, generator=g, dtype=torch.float64)
+        keep = ((ids >= 0) & (ids < 7)).reshape(-1, *([1] * (x.dim() - 1)))
+        want = torch.zeros((7,) + shape[1:], dtype=x.dtype).index_add_(
+            0, ids.clamp(0, 6), torch.where(keep, x, 0.0))
+        torch.testing.assert_close(tpc.segment_sum_by_id(x, ids, 7), want, rtol=0, atol=1e-12)
 
 
 def _packed(cloud):

@@ -117,3 +117,28 @@ def test_native_runtime_builds_in_the_port_and_reads_jax_frames(tmp_path):
         assert stamp == want_t and n == want.shape[0]
         np.testing.assert_array_equal(buf[:n], want)
         assert not buf[n:].any()
+
+
+def test_native_dataset_reads_frames_and_the_pipeline_reports_backlog(tmp_path):
+    """The single-stage reader (`NativeDataset`, the stream CLI's warm-up)
+    gives each frame's rows as float32 copies, as the JAX package's does;
+    the two-stage reader's `backlog` counts queued items."""
+    rng = np.random.default_rng(1)
+    frames = []
+    for i, n in enumerate((5, 33, 2, 0, 9)):
+        xyz = rng.normal(size=(n, 3)).astype(np.float32)
+        inten, dop = rng.normal(size=n).astype(np.float32), rng.normal(size=n).astype(np.float32)
+        tnative.write_frame(tmp_path / f"{i:06d}.grf", 0.25 * i, xyz, inten, dop)
+        frames.append((0.25 * i, xyz, inten, dop))
+    paths = sorted(tmp_path.glob("*.grf"))
+    got = list(tnative.NativeDataset(paths, capacity=64))
+    want = [f for f in frames if len(f[1])]  # an empty frame (sensor dropout) is skipped
+    assert len(got) == len(want) == 4
+    for (stamp, xyz, inten, dop), w in zip(got, want):
+        assert stamp == w[0] and xyz.dtype == np.float32 and xyz.shape == w[1].shape
+        for a, b in zip((xyz, inten, dop), w[1:]):
+            np.testing.assert_array_equal(a, b)
+    ds = tnative.NativePipelineDataset(paths, capacity=64, queue_depth=2)
+    assert all(isinstance(ds.backlog(k), int) and 0 <= ds.backlog(k) <= 2 for k in (0, 1))
+    assert len(list(ds)) == 4 and ds.backlog(0) == ds.backlog(1) == 0
+    ds.close()

@@ -217,19 +217,6 @@ def test_full_configuration_matches_jax(full_runs):
     assert abs(et - ej) <= 0.2 * ej + 1e-3, (et, ej)
 
 
-@pytest.mark.parametrize("flags,item", [
-    ([*FULL, "--dump", "g.g2o"], "A13"),
-    ([*FULL, "--map", "m.npz"], "A13"),
-    ([*FULL, "--config", "c.yaml"], "A13"),
-    (["--dump", "g.g2o"], "A13"),
-    (["--map", "m.npz"], "A13"),
-    (["--config", "c.yaml"], "A13"),
-])
-def test_unported_flags_raise(runs, flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        torch_cli(["slam", "--dataset", str(runs[0] / "seq"), "--device", "cpu", *flags])
-
-
 def test_cuda_device_without_a_card_raises(runs):
     import torch
 
@@ -242,10 +229,11 @@ def test_cuda_device_without_a_card_raises(runs):
 def test_port_runs_without_jax(runs, full_runs, tmp_path):
     """A process in which `import jax`, `import jaxlib` and `import
     gorio_tpu` (and every submodule) fail runs the port's whole slice, loop
-    closure on: simulate, slam (the default path, the paper's four flags,
-    and `--registration ndt`), evaluate, align — with the same results as
-    this process (with loops off: the 4 s sequence never passes the 50 m
-    gate).
+    closure on: simulate, slam (the default path, the paper's four flags
+    with `--config` of `dump-config`'s tree, `--dump` and `--map`, and
+    `--registration ndt`), stream, evaluate, align — with the same results
+    as this process (with loops off: the 4 s sequence never passes the 50 m
+    gate; the config tree's defaults are the flags').
     (An import hook blocks them: a `sys.modules['jax'] = None` entry trips
     scipy's array-API helper, which looks the module up by name.)"""
     d = runs[0]
@@ -262,8 +250,13 @@ def test_port_runs_without_jax(runs, full_runs, tmp_path):
         " '--capacity', '512', '--device', 'cpu'])\n"
         f"r = main(['evaluate', {str(tmp_path / 'e.tum')!r}, 'seq/groundtruth.tum'])\n"
         "assert r['ate_rmse_m'] < 0.05\n"
+        "main(['dump-config', '--output', 'c.json'])\n"
         f"main(['slam', '--dataset', 'seq', '--output', {str(tmp_path / 'f.tum')!r},"
-        f" '--capacity', '512', '--device', 'cpu', *{FULL!r}])\n"
+        f" '--capacity', '512', '--device', 'cpu', *{FULL!r}, '--config', 'c.json',"
+        " '--dump', 'dump', '--map', 'map.npz'])\n"
+        "r = main(['stream', '--dataset', 'seq', '--capacity', '512', '--device', 'cpu',"
+        " '--rate-multiplier', '20', '--no-loops', '--output', 's.tum'])[0]\n"
+        "assert r.n_processed == r.n_frames > 0 and r.n_dropped == 0\n"
         f"main(['slam', '--dataset', 'seq', '--output', {str(tmp_path / 'n.tum')!r},"
         " '--capacity', '512', '--device', 'cpu', '--registration', 'ndt'])\n"
         "from gorio_tpu_torch.io.pcd import write_pcd\n"
@@ -286,6 +279,9 @@ def test_port_runs_without_jax(runs, full_runs, tmp_path):
     np.testing.assert_allclose(load_tum(tmp_path / "f.tum")[1],
                                load_tum(d / "torch_full.tum")[1], atol=1e-7)
     assert np.isfinite(load_tum(tmp_path / "n.tum")[1]).all()
+    assert np.isfinite(load_tum(tmp_path / "s.tum")[1]).all()
+    assert len(list((tmp_path / "dump").glob("0*"))) == len(load_tum(tmp_path / "f.tum")[0])
+    assert len(np.load(tmp_path / "map.npz")["xyz"]) > 0
 
 
 def _imported_modules(path):
