@@ -140,6 +140,55 @@ Phases, one line each (more for the tables):
                gate rejects the jumps across dropped frames). The realtime
                factor, frames on time and the latency percentiles are
                printed, not held.
+  12. posterior — on the slice's and the circuit's `slam` of phases 4-5:
+               `sample_posterior()` at the defaults (4 chains x 200 draws
+               after 100 warmup iterations, the whitened kernel at step 0.15
+               x 16 leapfrog steps), on the slice and the circuit, and with
+               `window=10` on the slice: fails unless everything is finite,
+               the mean acceptance is > 0.3, the last pose's empirical std
+               is within (0.1, 10) x its Laplace std, and the window's
+               covariance is (60, 60); prints acceptance, R-hat max, Geyer
+               ESS min / median, samples/s, ms per leapfrog step of the
+               whole call, and of the sampled density (rebuilt from
+               `posterior_graph` and the same solve) through the CUDA
+               graph and eager; on the circuit also the kernels and device
+               time of one eager density value and gradient (profiler),
+               whose CUDA graph replay must equal it within 1e-10, and
+               the JAX package's CPU f64 record (`CIRCUIT_POSTERIOR_JAX`,
+               not held). bench-posterior: `bench.py`'s 50-keyframe
+               loop-closed f32 posterior, the whitened quality pass (16
+               chains x 512 draws, step 0.12, adapt off, from its
+               1.5-sigma inits; fails unless the mean acceptance is > 0.5,
+               which a TF32 leak collapses) with ESS/s and R-hat on the
+               [R, t] embedding, and its unwhitened samples/s (16 chains x
+               64 draws x 3 repetitions). smoother:
+               `smc_loop_relaxation(None, ...)` over the circuit's
+               keyframes (odometry, preintegration and anchor factors
+               around the odometry poses, the accepted loops tempered in)
+               with 10,240 particles, 8 stages x 2 MALA moves, printing
+               each run's ESS per stage and the stages it resampled: with
+               the true loops it fails unless the log evidence and the
+               mean are finite, every stage's ESS lies in (1, N], the MALA
+               acceptance is > 0.05, the posterior mean's ATE is below the
+               odometry's, and the evidence gate passes; then with the
+               first loop moved by [20, -15, 5] m (JAX
+               `test_evidence_rejects_bogus_loop`'s move: 255 stddevs of
+               its loop, a few of the circuit's fitness-based, Huber
+               loops; the drop is printed beside the JAX package's record,
+               `CIRCUIT_SMOOTHER_JAX`, not held), moved by 255 of its own
+               translation stddevs, and replaced by the JAX test's bogus
+               loop (information 100 I, no Huber kernel, moved by [20,
+               -15, 5] m): the last two must lower the log evidence by
+               more than 50, and the last must resample at a stage; prints
+               the peak memory. Last, `run_hmc` (2 chains x 20 draws, the
+               slice's posterior) and `smc_loop_relaxation` (256
+               particles, 2 stages, the circuit with the JAX test's bogus
+               loop) on the card and on the CPU from the same inputs and
+               draws must agree within 1e-8 (the smoother's fields
+               relative to each field's largest value), and the smoother
+               must resample at the same stages on both, at least one. The
+               launch counts of the three `sample_posterior` runs are the
+               path's (`launches_by_path["posterior"]`).
 The two sequences are simulated in child processes started at the beginning,
 beside the build and the kernel phase. Then the kernels' JSON line, the card
 line, and the last line `{"ok": true, "device": {...}}`. Any failure exits
@@ -676,7 +725,7 @@ def slice_phase(K, seq, tmp):
           f"trajectory {'equal to the bit' if same else 'DIFFERENT'}", flush=True)
     if not same:
         fail("slice: `slam --config` with the default tree changed the trajectory")
-    return launches, n_kf
+    return launches, n_kf, slam
 
 
 def repeat_check(seq):
@@ -855,7 +904,7 @@ def circuit_phase(K, seq, tmp):
     print(f"[circuit] keyframes {n_kf} (JAX {CIRCUIT_JAX['keyframes']}), loops {n_loops} "
           f"(JAX {CIRCUIT_JAX['loops']}), ATE {ate:.6f} m (JAX {CIRCUIT_JAX['ate_m']:.6f} m, "
           f"limit {ate_max:.6f} m)", flush=True)
-    return launches
+    return launches, slam
 
 
 def full_phase(K, seq, tmp, what, flags, jax_rec, ate_max, planes_kind):
@@ -1272,6 +1321,455 @@ def align_phase(K, tmp):
     return launches
 
 
+# ---- posterior -------------------------------------------------------------
+
+POSTERIOR_CHAINS, POSTERIOR_DRAWS = 4, 200  # sample_posterior's defaults (100 warmup)
+POSTERIOR_LEAPFROG = 16
+POSTERIOR_WINDOW = 10
+ACCEPT_MIN, LAPLACE_RATIO = 0.3, (0.1, 10.0)  # JAX `test_posterior_sampling`'s criteria
+# The JAX package's CPU f64 record of `sample_posterior(PRNGKey(0))` at the
+# defaults on the keyframes of its CLI's circuit run (`tests/jax_records.py
+# posterior`; PERF.md): Monte Carlo quantities, printed beside the card's
+CIRCUIT_POSTERIOR_JAX = {"keyframes": 361, "loops": 13, "dofs": 2166,
+                         "accept": 0.9242661964101941, "rhat_max": 0.9986175310943047,
+                         "laplace_std_last_pose": 0.16240869078927544}
+BENCH_K, BENCH_CHAINS, BENCH_DRAWS, BENCH_RAW_DRAWS, BENCH_RAW_REPEATS = 50, 16, 512, 64, 3
+BENCH_LOOPS = ((0, 24), (10, 35), (20, 45), (5, 49), (15, 40), (2, 30))
+BENCH_ACCEPT_MIN = 0.5
+SMOOTHER_N, SMOOTHER_STAGES, SMOOTHER_MOVES = 10240, 8, 2  # BASELINE config 5: 10k+ particles
+# JAX `test_evidence_rejects_bogus_loop`: its loop (information 100 I, a
+# 0.1 m translation stddev, no Huber kernel) moved by [20, -15, 5] m, 255
+# stddevs, must lower log Z by > 50
+BOGUS_OFFSET_M, BOGUS_STDDEVS, BOGUS_DROP = (20.0, -15.0, 5.0), 255.0, 50.0
+JAX_TEST_LOOP_SQRT_INFO = 10.0
+# The JAX package's CPU f64 record (`tests/jax_records.py smoother`; PERF.md)
+# of the smoother on its own circuit run's keyframes, 1,024 particles (the
+# port's CPU run on its draws equal within 1e-10): log Z of the true loops,
+# its drop in each other run, the stages resampled; printed, not held
+CIRCUIT_SMOOTHER_JAX = {
+    "true loops": {"log_evidence": -7.557912588705501, "resampled_stages": 0},
+    "first loop moved [20, -15, 5] m": {"drop": 2.3959002016217736, "resampled_stages": 0},
+    "first loop moved 255 of its stddevs": {"drop": 127.34440978114125, "resampled_stages": 0},
+    "the JAX test's bogus loop in place of the first": {"drop": 53775.3127072056,
+                                                        "resampled_stages": 8},
+}
+CARD_CPU_TOL = 1e-8
+CARD_CPU_PARTICLES, CARD_CPU_STAGES = 256, 2
+
+
+def leapfrog_ms(lp, y0, graphed, steps):
+    """ms per leapfrog step of `hmc_step` on the density `lp` at the chains
+    `y0`, eager or through a captured CUDA graph (as `run_hmc` runs it)."""
+    import torch
+
+    from gorio_tpu_torch.inference.hmc import CudaGraphed, hmc_init, hmc_step
+
+    fn = CudaGraphed(lp, y0) if graphed else lp
+    state = hmc_init(fn, y0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    state, _ = hmc_step(state, fn, 0.05, POSTERIOR_LEAPFROG, generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, _ = hmc_step(state, fn, 0.05, POSTERIOR_LEAPFROG, generator=gen)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / (steps * POSTERIOR_LEAPFROG)
+
+
+def density_profile(what, lp, y0):
+    """One `value_and_grad` of `lp` at `y0`, eager under the profiler (its
+    kernels and device time) and through a captured CUDA graph (equal to the
+    eager result to the bit)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gorio_tpu_torch.inference.hmc import CudaGraphed, value_and_grad
+
+    y = 0.3 * torch.randn(y0.shape, generator=torch.Generator(device="cuda").manual_seed(2),
+                          dtype=y0.dtype, device=y0.device)
+    eager = value_and_grad(lp, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        value_and_grad(lp, y)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    graphed = value_and_grad(CudaGraphed(lp, y0), y)
+    gap = max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+              for a, b in zip(graphed, eager))
+    print(f"[{what}] {CARD}: one whitened density value and gradient, {y0.shape[0]} chains x "
+          f"{y0.shape[1]} dofs: {sum(e.count for e in ev)} kernels and "
+          f"{sum(e.self_device_time_total for e in ev) / 1e3:.3f} ms of device time eager; the "
+          f"CUDA graph's replay against the eager call: max relative difference {gap:.3e}",
+          flush=True)
+    if not gap <= 1e-10:
+        fail(f"{what}: the CUDA graph's density differs from the eager one by {gap:.3e}")
+
+
+def posterior_run(what, slam, window=None, profile_density=False):
+    """`sample_posterior` at the defaults on the card: its checks, its
+    diagnostics and its timing. The density it sampled is rebuilt from
+    `posterior_graph` and the same dense solve, and timed per leapfrog step
+    through the CUDA graph and eager."""
+    import numpy as np
+    import torch
+
+    from gorio_tpu_torch.graph.solver import laplace_covariance, optimize_graph
+    from gorio_tpu_torch.inference.hmc import chain_ess
+    from gorio_tpu_torch.inference.laplace import graph_logprob, whitened_logprob
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples, accepts, rhat, cov = slam.sample_posterior(gen, window=window)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    C, n, D = samples.shape
+    K = D // 6
+    if not all(bool(torch.isfinite(x).all()) for x in (samples, accepts, rhat, cov)):
+        fail(f"{what}: non-finite samples, accept probabilities, R-hat or covariance")
+    if samples.device.type != "cuda" or cov.shape != (D, D):
+        fail(f"{what}: samples on {samples.device}, covariance {tuple(cov.shape)} for {D} dofs")
+    if window is not None and D != 6 * window:
+        fail(f"{what}: {D} dofs, expected 6 x {window}")
+    post = samples[:, n // 4:]
+    emp_std = post.reshape(-1, D).std(dim=0)
+    lap_std = torch.sqrt(torch.diagonal(cov))
+    ratio = float(emp_std[D - 6:].mean() / lap_std[D - 6:].mean())
+    accept = float(accepts.mean())
+    ess = chain_ess(post.cpu().numpy())
+    poses0, graph = slam.posterior_graph(window)
+    res = optimize_graph(poses0, graph, slam.cfg.solve)
+    cov_gap = float((laplace_covariance(res) - cov).abs().max())
+    lp_y, _ = whitened_logprob(graph_logprob(res.poses, graph), res.H)
+    y0 = torch.zeros((C, D), dtype=poses0.dtype, device=poses0.device)
+    graphed, eager = leapfrog_ms(lp_y, y0, True, 8), leapfrog_ms(lp_y, y0, False, 2)
+    iters = n + n // 2
+    print(f"[{what}] {CARD}: {K} keyframes, {D} dofs, {C} chains x {n} draws after {n // 2} "
+          f"warmup, accept {accept:.4f}, R-hat max {float(rhat.max()):.4f} (last 3/4), Geyer "
+          f"ESS min / median {ess.min():.1f} / {np.median(ess):.1f} of {C * (n - n // 4)}, last "
+          f"pose's std / Laplace std {ratio:.4f}, {C * n / wall:.1f} samples/s (whole call "
+          f"{wall:.2f} s, {1e3 * wall / (iters * POSTERIOR_LEAPFROG):.3f} ms per leapfrog step "
+          f"of its {iters} x {POSTERIOR_LEAPFROG}); the sampled density rebuilt (its Laplace "
+          f"covariance within {cov_gap:.3e} of the call's): {graphed:.3f} ms per leapfrog step "
+          f"through the CUDA graph, {eager:.3f} ms eager", flush=True)
+    if not accept > ACCEPT_MIN:
+        fail(f"{what}: mean acceptance {accept:.4f} <= {ACCEPT_MIN}")
+    if not LAPLACE_RATIO[0] < ratio < LAPLACE_RATIO[1]:
+        fail(f"{what}: the last pose's std is {ratio:.4f} x its Laplace std, outside "
+             f"{LAPLACE_RATIO}")
+    if profile_density:
+        density_profile(what, lp_y, y0)
+    return dict(accept=accept, rhat_max=float(rhat.max()),
+                laplace_std_last_pose=float(lap_std[D - 6:].mean()),
+                inputs=dict(poses=res.poses, graph=graph, H=res.H, D=D))
+
+
+def bench_graphs(dtype):
+    """`bench.py`'s 50-keyframe posteriors (`bench.py:565-582,632-646`) in
+    `dtype`: the chain alone, and with its six loops (quadratic)."""
+    import numpy as np
+
+    from gorio_tpu_torch.graph.graph import PoseGraph
+
+    rng = np.random.default_rng(11)
+    Ts = [np.eye(4)]
+    for _ in range(BENCH_K - 1):
+        d = np.eye(4)
+        d[:3, 3] = [1.0, 0.02, 0.0] + rng.normal(scale=0.01, size=3)
+        Ts.append(Ts[-1] @ d)
+
+    def build(loops):
+        g = PoseGraph(dtype=dtype)
+        for T in Ts:
+            g.add_pose(T)
+        for k in range(1, BENCH_K):
+            g.add_between(k - 1, k, np.linalg.inv(Ts[k - 1]) @ Ts[k], info=np.eye(6) * 25.0)
+        g.add_prior(0, Ts[0], info=np.eye(6) * 1e4)
+        for i, j in loops:
+            g.add_between(i, j, np.linalg.inv(Ts[i]) @ Ts[j], info=np.eye(6) * 50.0)
+        return g.freeze(device="cuda")
+
+    return build(()), build(BENCH_LOOPS)
+
+
+def bench_posterior():
+    """`bench.py`'s HMC quality pass (whitened, quadratic loop-closed
+    posterior, 16 chains x 512 draws at step 0.12, adapt off, from 1.5-sigma
+    inits) and its unwhitened samples/s pass (16 chains x 64 draws, step
+    0.02), float32 on the card. The 5-iteration GN solve whose Hessian
+    whitens the density runs in float64: the port's LM does not run in
+    float32 (`torch.func.vmap(jacfwd)` promotes a division by a Python float
+    to float64; ROADMAP Queue C)."""
+    import numpy as np
+    import torch
+
+    from gorio_tpu_torch.core.lie import se3_exp_split
+    from gorio_tpu_torch.graph.solver import SolveConfig, optimize_graph
+    from gorio_tpu_torch.inference.hmc import chain_ess, potential_scale_reduction, run_hmc
+    from gorio_tpu_torch.inference.laplace import graph_logprob, unwhiten, whitened_logprob
+
+    (poses0, chain), (poses_q, loop_graph) = bench_graphs(np.float32)
+    D = BENCH_K * 6
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    res = optimize_graph(*bench_graphs(np.float64)[1], SolveConfig(max_iterations=5))
+    lp_y, L = whitened_logprob(graph_logprob(poses_q, loop_graph), res.H.float())
+    inits = torch.as_tensor(1.5 * np.random.default_rng(9).standard_normal((BENCH_CHAINS, D)),
+                            dtype=torch.float32, device="cuda")
+    run_hmc(lp_y, inits, n_samples=2, step_size=0.12, adapt=False, generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ys, acc = run_hmc(lp_y, inits, n_samples=BENCH_DRAWS, step_size=0.12, adapt=False,
+                      generator=gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    x = unwhiten(L, ys).reshape(BENCH_CHAINS, BENCH_DRAWS, BENCH_K, 6)
+    T = poses_q @ se3_exp_split(x)
+    emb = torch.cat([T[..., :3, :3].reshape(*T.shape[:-2], 9), T[..., :3, 3]], dim=-1)
+    post = emb.reshape(BENCH_CHAINS, BENCH_DRAWS, -1)[:, BENCH_DRAWS // 4:].double()
+    keep = post.std(dim=(0, 1)) > 1e-7
+    ess = chain_ess(post[..., keep].cpu().numpy())
+    rhat = float(potential_scale_reduction(post[..., keep]).max())
+    accept = float(torch.nanmean(acc))
+    ms = 1e3 * wall / (BENCH_DRAWS * POSTERIOR_LEAPFROG)
+    lp = graph_logprob(poses0, chain)
+    zeros = torch.zeros((BENCH_CHAINS, D), dtype=torch.float32, device="cuda")
+    run_hmc(lp, zeros, n_samples=2, step_size=0.02, adapt=False, generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(BENCH_RAW_REPEATS):
+        run_hmc(lp, zeros, n_samples=BENCH_RAW_DRAWS, step_size=0.02, adapt=False,
+                generator=gen)
+    torch.cuda.synchronize()
+    raw = BENCH_CHAINS * BENCH_RAW_DRAWS * BENCH_RAW_REPEATS / (time.perf_counter() - t0)
+    print(f"[bench-posterior] {CARD}: whitened quadratic {BENCH_K}-keyframe posterior with "
+          f"{len(BENCH_LOOPS)} loops, f32, {BENCH_CHAINS} chains x {BENCH_DRAWS} draws: accept "
+          f"{accept:.4f}, ESS/s min / median {ess.min() / wall:.1f} / "
+          f"{np.median(ess) / wall:.1f} (ESS {ess.min():.1f} / {np.median(ess):.1f} of "
+          f"{post.shape[0] * post.shape[1]} scored draws in {wall:.3f} s, {ms:.3f} ms per "
+          f"leapfrog step), split R-hat max {rhat:.4f} on the [R, t] embedding; unwhitened "
+          f"chain posterior: {raw:.1f} samples/s ({BENCH_CHAINS} chains x {BENCH_RAW_DRAWS} "
+          f"draws x {BENCH_RAW_REPEATS} repetitions; bench.py takes 20)", flush=True)
+    if not accept > BENCH_ACCEPT_MIN:
+        fail(f"bench-posterior: mean acceptance {accept:.4f} <= {BENCH_ACCEPT_MIN} (TF32?)")
+
+
+def smoother_graph(slam, device="cuda"):
+    """The circuit's keyframes as `sample_posterior` builds their graph,
+    around the odometry poses: the anchor prior, the odometry and
+    preintegration betweens and, masked as the tempered factors, the
+    accepted loops. Returns (poses0, graph, loop_mask)."""
+    import numpy as np
+
+    from gorio_tpu_torch.graph.graph import PoseGraph
+
+    kfs = slam.keyframes
+    g = PoseGraph()
+    for kf in kfs:
+        g.add_pose(kf.odom_scan2scan)
+    g.add_prior(0, kfs[0].odom_scan2scan, info=np.eye(6) * slam.cfg.anchor_info)
+    for k in range(1, len(kfs)):
+        prev, curr = kfs[k - 1], kfs[k]
+        g.add_between(k - 1, k, np.linalg.inv(prev.odom_scan2scan) @ curr.odom_scan2scan,
+                      info=curr.edge_info)
+        if curr.trans_integrated is not None:
+            var = np.clip(np.diag(curr.preint_cov), 1e-6, None)
+            g.add_between(k - 1, k, curr.trans_integrated, info=np.diag(1.0 / var))
+    slots = []
+    for loop in slam.loops:
+        slots.append(len(g._between))
+        g.add_between(loop.key_old, loop.key_new, loop.T_rel, info=loop.information,
+                      robust_delta=slam.cfg.loop_robust_delta)
+    poses0, graph = g.freeze(device=device)
+    mask = np.zeros(graph.between.mask.shape[0], bool)
+    mask[slots] = True
+    return poses0, graph, mask
+
+
+def smoother_variants(graph, mask):
+    """The runs of the smoother phase, name -> graph: the true loops; the
+    first loop moved by [20, -15, 5] m (JAX's move; the circuit's loops
+    carry the fitness-based information of the reference, a translation
+    stddev of metres, and a Huber kernel, so this is a few stddevs); moved
+    by 255 of its own translation stddevs; and replaced by the JAX test's
+    bogus loop (information 100 I, no Huber kernel, moved by [20, -15, 5] m:
+    255 stddevs). Also returns the first loop's stddev (m)."""
+    import numpy as np
+    import torch
+
+    bw = graph.between
+    idx = int(np.flatnonzero(mask)[0])
+    sq = bw.sqrt_info[idx, 3:, 3:]
+    stddev = float(torch.sqrt(1.0 / torch.diagonal(sq.T @ sq).mean()))
+    offset = torch.tensor(BOGUS_OFFSET_M, dtype=bw.T_meas.dtype, device=bw.T_meas.device)
+
+    def edit(k, jax_loop=False):
+        T_meas, sqrt_info, delta = bw.T_meas.clone(), bw.sqrt_info.clone(), bw.robust_delta.clone()
+        T_meas[idx, :3, 3] += k * offset
+        if jax_loop:
+            sqrt_info[idx] = JAX_TEST_LOOP_SQRT_INFO * torch.eye(6, dtype=sqrt_info.dtype,
+                                                                 device=sqrt_info.device)
+            delta[idx] = float("inf")
+        return graph._replace(between=bw._replace(T_meas=T_meas, sqrt_info=sqrt_info,
+                                                  robust_delta=delta))
+
+    scale = BOGUS_STDDEVS * stddev / float(torch.linalg.norm(offset))
+    return stddev, {
+        "true loops": graph,
+        "first loop moved [20, -15, 5] m": edit(1.0),
+        "first loop moved 255 of its stddevs": edit(scale),
+        "the JAX test's bogus loop in place of the first": edit(1.0, jax_loop=True),
+    }
+
+
+def resampled(res, n):
+    """The stages whose ESS fell below half the particles: those the
+    smoother resampled (its `ess_threshold` 0.5)."""
+    return [s for s, e in enumerate(res.ess_per_stage.tolist()) if e < 0.5 * n]
+
+
+def smoother_phase(slam, seq):
+    """`smc_loop_relaxation` over the circuit at 10,240 particles, in each
+    of `smoother_variants`: the true loops hold the JAX test's checks;
+    moving the first loop by [20, -15, 5] m is printed beside the JAX
+    package's record; moving it 255 of its stddevs and the JAX test's bogus
+    loop must each lower log Z by more than 50, and the latter must
+    resample. Returns the circuit's poses, the JAX test's bogus loop's
+    graph and the loop mask."""
+    import numpy as np
+    import torch
+
+    from gorio_tpu_torch.inference.smoother import loop_evidence_gate, smc_loop_relaxation
+    from gorio_tpu_torch.io.tum import ate_rmse, load_tum
+
+    poses0, graph, mask = smoother_graph(slam)
+    gs, gp = load_tum(seq / "groundtruth.tum")
+    stamps = np.asarray([kf.stamp for kf in slam.keyframes])
+    stddev, variants = smoother_variants(graph, mask)
+    print(f"[smoother] the first loop's translation stddev {stddev:.4f} m", flush=True)
+    logz = {}
+    for what, g in variants.items():
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = smc_loop_relaxation(None, poses0, g, mask, n_particles=SMOOTHER_N,
+                                  n_stages=SMOOTHER_STAGES, n_moves=SMOOTHER_MOVES)(gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        ess = res.ess_per_stage.cpu().numpy()
+        rs = resampled(res, SMOOTHER_N)
+        logz[what], acc = float(res.log_evidence), float(res.accept_rate)
+        ate_odom = ate_rmse(stamps, poses0.cpu().numpy(), gs, gp)
+        ate_mean = ate_rmse(stamps, res.poses_mean.cpu().numpy(), gs, gp)
+        drop = logz["true loops"] - logz[what]
+        print(f"[smoother] {CARD}: {what}: {SMOOTHER_N} particles over {poses0.shape[0]} poses, "
+              f"{int(mask.sum())} loops, {SMOOTHER_STAGES} stages x {SMOOTHER_MOVES} MALA moves "
+              f"in {wall:.2f} s, log evidence {logz[what]:.4f} (lower by {drop:.4f}), ESS per "
+              f"stage {np.round(ess, 1).tolist()}, resampled at stages {rs}, accept {acc:.4f}, "
+              f"ATE of the posterior mean {ate_mean:.6f} m (odometry {ate_odom:.6f} m), gate "
+              f"{loop_evidence_gate(res)}, peak memory {peak:.2f} GiB; the JAX package's "
+              f"record on its own circuit run (1,024 particles) {CIRCUIT_SMOOTHER_JAX[what]}",
+              flush=True)
+        if what == "true loops":
+            if not (np.isfinite(logz[what]) and bool(torch.isfinite(res.mean_delta).all())):
+                fail("smoother: non-finite log evidence or posterior mean")
+            if not (np.all(ess > 1.0) and np.all(ess <= SMOOTHER_N * (1 + 1e-9))):
+                fail(f"smoother: a stage's ESS outside (1, {SMOOTHER_N}]: {ess.tolist()}")
+            if not acc > 0.05:
+                fail(f"smoother: MALA acceptance {acc:.4f} <= 0.05")
+            if not ate_mean < ate_odom:
+                fail(f"smoother: the posterior mean's ATE {ate_mean:.6f} m is not below the "
+                     f"odometry's {ate_odom:.6f} m")
+            if not loop_evidence_gate(res):
+                fail(f"smoother: loop_evidence_gate rejects the true loops (log Z "
+                     f"{logz[what]:.4f})")
+        elif what != "first loop moved [20, -15, 5] m" and not drop > BOGUS_DROP:
+            fail(f"smoother: {what}: log evidence lower by only {drop:.4f} (must exceed "
+                 f"{BOGUS_DROP})")
+        if what.startswith("the JAX test's") and not rs:
+            fail(f"smoother: {what}: no stage resampled (ESS {ess.tolist()})")
+    return poses0, variants["the JAX test's bogus loop in place of the first"], mask
+
+
+def card_equals_cpu(inputs, smoother_inputs):
+    """`run_hmc` (2 chains x 20 draws on the slice's whitened posterior) and
+    `smc_loop_relaxation` (256 particles, 2 stages on the circuit with the
+    JAX test's bogus loop, where it resamples) on the card and on the CPU
+    from the same inputs and the same draws, made on the CPU from a seeded
+    generator: equal within 1e-8."""
+    import torch
+
+    from gorio_tpu_torch.inference.hmc import run_hmc
+    from gorio_tpu_torch.inference.laplace import graph_logprob, whitened_logprob
+    from gorio_tpu_torch.inference.smoother import smc_loop_relaxation
+
+    def on(dev, graph):
+        return type(graph)(*(type(f)(*(t.to(dev) for t in f)) for f in graph))
+
+    gen = torch.Generator().manual_seed(0)
+    D = inputs["D"]
+    n, S = 20, 30
+    draws = (torch.randn((S, 2, D), generator=gen, dtype=torch.float64),
+             torch.log(torch.rand((S, 2), generator=gen, dtype=torch.float64)))
+    runs = []
+    for dev in ("cuda", "cpu"):
+        lp_y, _ = whitened_logprob(graph_logprob(inputs["poses"].to(dev),
+                                                 on(dev, inputs["graph"])), inputs["H"].to(dev))
+        runs.append(run_hmc(lp_y, torch.zeros((2, D), dtype=torch.float64, device=dev),
+                            n_samples=n, step_size=0.15, n_leapfrog=POSTERIOR_LEAPFROG,
+                            draws=tuple(d.to(dev) for d in draws)))
+    hmc_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(*runs))
+    poses0, graph, mask = smoother_inputs
+    N, S2, D2 = CARD_CPU_PARTICLES, CARD_CPU_STAGES, poses0.shape[0] * 6
+    sdraws = (torch.randn((N, D2), generator=gen, dtype=torch.float64),
+              torch.rand((S2,), generator=gen, dtype=torch.float64),
+              torch.randn((S2, 1, N, D2), generator=gen, dtype=torch.float64),
+              torch.log(torch.rand((S2, 1, N), generator=gen, dtype=torch.float64)))
+    res = []
+    for dev in ("cuda", "cpu"):
+        run = smc_loop_relaxation(None, poses0.to(dev), on(dev, graph), mask, n_particles=N,
+                                  n_stages=S2, n_moves=1)
+        res.append(run(draws=tuple(d.to(dev) for d in sdraws)))
+    smc_err = max(float((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1.0))
+                  for a, b in zip(*res))
+    rs = resampled(res[0], N), resampled(res[1], N)
+    print(f"[posterior] card = CPU on the same draws: run_hmc (2 chains x {n} draws, {D} dofs) "
+          f"max |diff| {hmc_err:.3e}, smc_loop_relaxation ({N} particles, {S2} stages, "
+          f"{poses0.shape[0]} poses, the JAX test's bogus loop; resampled at stages {rs[0]} on "
+          f"the card, {rs[1]} on the CPU) max |diff| relative to each field's largest "
+          f"{smc_err:.3e} (limit {CARD_CPU_TOL})", flush=True)
+    if not (hmc_err <= CARD_CPU_TOL and smc_err <= CARD_CPU_TOL):
+        fail(f"posterior: the card's run differs from the CPU's on the same draws "
+             f"(run_hmc {hmc_err:.3e}, smc_loop_relaxation {smc_err:.3e})")
+    if not rs[0] or rs[0] != rs[1]:
+        fail(f"posterior: smc_loop_relaxation resampled at stages {rs[0]} on the card and "
+             f"{rs[1]} on the CPU: the comparison must cover a resample")
+
+
+def posterior_phase(K, slice_slam, circuit_slam, circuit_seq):
+    """Posterior inference on the slice's and the circuit's SLAM: the
+    `sample_posterior` runs (their launch counts are the path's), bench.py's
+    HMC passes, the smoother, and the card against the CPU."""
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    first = posterior_run("slice-posterior", slice_slam)
+    posterior_run(f"slice-posterior window={POSTERIOR_WINDOW}", slice_slam,
+                  window=POSTERIOR_WINDOW)
+    rec = posterior_run("circuit-posterior", circuit_slam, profile_density=True)
+    launches = dict(K.launch_counts)
+    print(f"[circuit-posterior] the JAX package's CPU f64 record on its own run's keyframes "
+          f"{CIRCUIT_POSTERIOR_JAX}; the card's accept {rec['accept']:.4f}, R-hat max "
+          f"{rec['rhat_max']:.4f}, Laplace std of the last pose "
+          f"{rec['laplace_std_last_pose']:.6f} (Monte Carlo quantities: printed, not held); "
+          f"launches {launches}", flush=True)
+    bench_posterior()
+    card_equals_cpu(first["inputs"], smoother_phase(circuit_slam, circuit_seq))
+    print(f"[posterior] {CARD}: the phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main():
     if not (ROOT / "gorio_tpu_torch" / "ops" / "csrc" / "nn1.cu").is_file():
         fail(f"no gorio_tpu_torch package beside {Path(__file__).name}: run from the repository")
@@ -1326,16 +1824,17 @@ def run_phases(tmp, sims):
     errs, stats, shapes, S_main = kernel_phase(K)
     wait_for(sims["slice"], "slice")
     launches = {}
-    launches["slice"], slice_keyframes = slice_phase(K, tmp / "slice", tmp)
+    launches["slice"], slice_keyframes, slice_slam = slice_phase(K, tmp / "slice", tmp)
     repeat_check(tmp / "slice")
     launches["full-slice"] = full_slice_phase(K, tmp / "slice", tmp)
     wait_for(sims["circuit"], "circuit")
-    launches["circuit"] = circuit_phase(K, tmp / "circuit", tmp)
+    launches["circuit"], circuit_slam = circuit_phase(K, tmp / "circuit", tmp)
     launches["full-circuit"] = full_circuit_phase(K, tmp / "circuit", tmp)
     launches.update(ndt_slice_phase(K, tmp / "slice", tmp))
     launches.update(scan_to_map_phase(K, tmp / "slice"))
     launches["align"] = align_phase(K, tmp)
     launches.update(stream_phase(K, tmp / "slice", tmp, slice_keyframes))
+    launches["posterior"] = posterior_phase(K, slice_slam, circuit_slam, tmp / "circuit")
 
     replaces = {"nn1": "gorio_tpu/ops/nn_pallas.py:34",
                 "nn1_select": "gorio_tpu/ops/nn_pallas.py:125"}

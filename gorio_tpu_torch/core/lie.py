@@ -225,8 +225,7 @@ def se3_matrix(R, t):
     R = R.expand(*batch, 3, 3)
     t = t.expand(*batch, 3)
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
-    bottom = bottom.expand(*batch, 4)[..., None, :]
+    bottom = _eye(4, R)[3].expand(*batch, 4)[..., None, :]  # no host copy: capturable
     return torch.cat([top, bottom], dim=-2)
 
 

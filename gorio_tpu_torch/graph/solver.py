@@ -19,6 +19,7 @@ switches to them above 128 padded poses); the CG option is not ported yet
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import NamedTuple
 
@@ -48,17 +49,24 @@ _CG_REFUSED = ("solver='cg' (Jacobi-preconditioned CG) is not ported yet "
                "(ROADMAP A7-sparse-cg)")
 
 
+@contextlib.contextmanager
+def f32_matmuls():
+    """TF32 off for cuBLAS matmuls inside the block (restored afterwards)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def _f32_matmuls(fn):
-    """Run `fn` with TF32 off for cuBLAS matmuls (restored afterwards)."""
+    """Run `fn` inside `f32_matmuls()`."""
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
-        prev = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
+        with f32_matmuls():
             return fn(*args, **kwargs)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = prev
 
     return wrapped
 
@@ -110,11 +118,12 @@ def _binary_terms(poses, fac, res_fn, meas):
 
 
 def _weighted(r, sqrt_info, robust_delta, mask):
-    """Whiten with sqrt_info and the robust kernel; masked factors zeroed."""
-    rw = torch.einsum("fij,fj->fi", sqrt_info, r)
+    """Whiten with sqrt_info and the robust kernel; masked factors zeroed.
+    `r` is (..., F, d); the chi2 sums over the factor axis."""
+    rw = torch.einsum("fij,...fj->...fi", sqrt_info, r)
     chi2 = torch.sum(rw * rw, dim=-1)
     w = huber_weight(chi2, robust_delta) * mask.to(r.dtype)
-    return rw, w, torch.sum(w * chi2)
+    return rw, w, torch.sum(w * chi2, dim=-1)
 
 
 def _unary_families(graph: GraphData):
@@ -159,14 +168,36 @@ def build_normal_equations(poses, graph: GraphData):
 
 
 def graph_chi2(poses, graph: GraphData):
-    """Total robustified chi2 (no Jacobians)."""
+    """Total robustified chi2 (no Jacobians) of poses (..., K, 4, 4) -> (...).
+    A family with no rows (`live_graph`) is skipped."""
     f = graph.between
-    r = BetweenFactors.residual(poses[f.i], poses[f.j], f.T_meas)
+    r = BetweenFactors.residual(poses[..., f.i, :, :], poses[..., f.j, :, :], f.T_meas)
     c2 = _weighted(r, f.sqrt_info, f.robust_delta, f.mask)[2]
     for fac, res_fn, meas in _unary_families(graph):
-        r = res_fn(poses[fac.i], *meas)
-        c2 = c2 + _weighted(r, fac.sqrt_info, fac.robust_delta, fac.mask)[2]
+        if fac.i.shape[0]:
+            r = res_fn(poses[..., fac.i, :, :], *meas)
+            c2 = c2 + _weighted(r, fac.sqrt_info, fac.robust_delta, fac.mask)[2]
     return c2
+
+
+def live_graph(graph: GraphData) -> GraphData:
+    """`graph` with each family cut to its live (masked-in) factors: the
+    padding rows contribute nothing to the chi2, and a density evaluated
+    thousands of times skips their work. Reads the masks on the host once."""
+    def cut(fam):
+        keep = torch.nonzero(fam.mask).squeeze(1)
+        return type(fam)(*(t[keep] for t in fam))
+
+    return GraphData(*(cut(fam) for fam in graph))
+
+
+def laplace_covariance(result: SolveResult):
+    """Gaussian (Laplace) posterior covariance over the stacked local
+    coordinates: H^-1 at the optimum, (6K, 6K)."""
+    n = result.H.shape[0]
+    eye = torch.eye(n, dtype=result.H.dtype, device=result.H.device)
+    L = torch.linalg.cholesky(result.H + 1e-9 * eye)
+    return torch.cholesky_solve(eye, L)
 
 
 def _flatten_H(Hb):

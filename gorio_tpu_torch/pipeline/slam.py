@@ -12,7 +12,8 @@ block-sparse direct (tridiagonal + Woodbury, with a Schur step for the
 plane) above. The graph is built on the host and solved on `device`, the
 card unless the caller asks for the CPU. The outputs: the trajectory, the
 graph and keyframes dumped to a directory (`save`), the voxelised map
-(`generate_map`) and the markers' JSON (`export_markers`).
+(`generate_map`) and the markers' JSON (`export_markers`); and the
+trajectory posterior around the GN solution (`sample_posterior`).
 
 `optimize` may run on a worker thread while another thread ingests frames
 and measurements (`pipeline/streaming.py`): it snapshots the keyframe list
@@ -32,8 +33,11 @@ import torch
 
 from ..core.pointcloud import PointCloud, make_cloud, voxel_downsample
 from ..graph.graph import PoseGraph
-from ..graph.solver import SolveConfig, optimize_graph, optimize_graph_with_planes
+from ..graph.solver import (SolveConfig, laplace_covariance, optimize_graph,
+                            optimize_graph_with_planes)
 from ..graph.sparse import optimize_graph_sparse, optimize_graph_with_planes_sparse
+from ..inference.hmc import potential_scale_reduction, run_hmc
+from ..inference.laplace import graph_logprob, unwhiten, whitened_logprob
 from ..loopclosure.information import InformationConfig, calc_information_matrix
 from ..loopclosure.loop_detector import LoopConfig, LoopDetector
 from ..preintegration.lpm import lpm_preintegrate
@@ -401,6 +405,76 @@ class RadarGraphSLAM:
         last = keyframes[-1]
         self.trans_odom2map = last.optimized_pose @ np.linalg.inv(last.odom_scan2scan)
         return opt
+
+    # ---- posterior inference (BASELINE configs 3-4) -----------------------
+    def posterior_graph(self, window: Optional[int] = None):
+        """The frozen factor graph whose posterior `sample_posterior`
+        samples, on the SLAM's device: (poses0 (K, 4, 4), GraphData) at the
+        current keyframes (or the last `window` of them), around their
+        optimized poses (else their odometry), the first pose anchored at
+        its current estimate; the odometry edges with the fitness-based
+        information of `optimize`, the preintegration edges, and the loops
+        with both ends in the graph, robust at `loop_robust_delta`."""
+        kfs = self.keyframes if window is None else self.keyframes[-window:]
+        base = self.keyframes[0].index if window is None else kfs[0].index
+
+        g = PoseGraph()
+        for kf in kfs:
+            g.add_pose(kf.optimized_pose if kf.optimized_pose is not None else kf.odom_scan2scan)
+        anchor = kfs[0].odom_scan2scan if kfs[0].optimized_pose is None else kfs[0].optimized_pose
+        g.add_prior(0, anchor, info=np.eye(6) * self.cfg.anchor_info)
+        for k in range(1, len(kfs)):
+            prev, curr = kfs[k - 1], kfs[k]
+            rel = np.linalg.inv(prev.odom_scan2scan) @ curr.odom_scan2scan
+            # the information of the GN graph (`optimize`): the sampled
+            # posterior is the posterior of that graph
+            if curr.edge_info is None:
+                info, _ = calc_information_matrix(
+                    curr.cloud, prev.cloud, torch.as_tensor(rel, device=self.device), self.cfg.info
+                )
+                curr.edge_info = info.cpu().numpy()
+            g.add_between(k - 1, k, rel, info=curr.edge_info)
+            if curr.trans_integrated is not None:
+                var = np.clip(np.diag(curr.preint_cov), 1e-6, None)
+                g.add_between(k - 1, k, curr.trans_integrated, info=np.diag(1.0 / var))
+        for loop in self.loops:
+            i, j = loop.key_old - base, loop.key_new - base
+            if i < 0 or j < 0 or i >= len(kfs) or j >= len(kfs):
+                continue
+            g.add_between(i, j, loop.T_rel, info=loop.information,
+                          robust_delta=self.cfg.loop_robust_delta)
+        return g.freeze(device=self.device)
+
+    def sample_posterior(self, generator=None, n_chains: int = 4, n_samples: int = 200,
+                         method: str = "hmc", window: Optional[int] = None, *, draws=None):
+        """Sample the trajectory posterior around the GN solution.
+
+        Solves `posterior_graph(window)` densely and runs `n_chains` HMC
+        chains in one batch on the Laplace-whitened density (step 0.15, 16
+        leapfrog steps, dual-averaging warmup of n_samples // 2). Returns
+        (samples (C, n, 6K), accept probabilities (C, n), split R-hat (6K,)
+        over the last 3/4 of each chain, the Laplace covariance (6K, 6K)),
+        on the SLAM's device.
+
+        `window=w` samples the fixed-lag posterior of the last `w` keyframes,
+        the window's first pose anchored at its current estimate. `method`
+        must be "hmc" (the JAX package ignores it; the port refuses other
+        names). The draws come from `generator` on the device, or as
+        `draws` = (z (S, C, 6K), log_u (S, C)), S = warmup + n_samples."""
+        if method != "hmc":
+            raise ValueError(f"sample_posterior(method={method!r}): only 'hmc' is implemented")
+        poses0, graph = self.posterior_graph(window)
+        res = optimize_graph(poses0, graph, self.cfg.solve)
+        n = poses0.shape[0] * 6
+        # the Laplace-whitened kernel: a diagonal inverse mass cannot undo a
+        # chain graph's cross-pose correlations
+        lp_y, L = whitened_logprob(graph_logprob(res.poses, graph), res.H)
+        y0 = torch.zeros((n_chains, n), dtype=poses0.dtype, device=self.device)
+        samples_y, accepts = run_hmc(lp_y, y0, n_samples=n_samples, step_size=0.15,
+                                     n_leapfrog=16, generator=generator, draws=draws)
+        samples = unwhiten(L, samples_y)
+        rhat = potential_scale_reduction(samples[:, n_samples // 4:])
+        return samples, accepts, rhat, laplace_covariance(res)
 
     # ---- outputs ---------------------------------------------------------
     def trajectory(self):

@@ -8,6 +8,8 @@ package's own run on the same input:
   python tests/jax_records.py candidates {jax,torch} SEQ OUT.json
   python tests/jax_records.py candidates-diff JAX.json TORCH.json
   python tests/jax_records.py verify-pairs SEQ TUM NEW:OLD [NEW:OLD ...]
+  python tests/jax_records.py posterior SEQ TUM    # `sample_posterior` after `slam`
+  python tests/jax_records.py smoother SEQ TUM [N]  # the loop smoother after `slam`
 
 `scan-to-map` runs `ScanMatchingOdometry(OdometryConfig(
 enable_scan_to_map=True, registration=r))` for r in ndt and apdgicp over a
@@ -39,8 +41,26 @@ keyframe clouds as the unfused CLI builds them (float32, capacity 2048) and
 the relative pose of TUM's keyframe poses as the seed; each pair alone and
 all pairs in one batch, printing each lane's convergence flag and fitness.
 
+`posterior` runs the JAX CLI's `slam --optimize-every 15` on SEQ (the
+circuit above), writing its trajectory to TUM, keeps the CLI's
+`RadarGraphSLAM` and calls its `sample_posterior(jax.random.PRNGKey(0))` at
+the defaults (4 chains x 200 draws after 100 warmup iterations, the
+whitened kernel at step 0.15, 16 leapfrog steps): it prints the keyframes,
+loops and dofs, the mean acceptance, the largest R-hat, the mean Laplace
+std of the last pose's six coordinates and the wall times.
+
+`smoother` runs the same `slam`, builds `chip_smoke.py`'s smoother graph on
+its keyframes (the anchor prior, the odometry and preintegration betweens
+around the odometry poses, the accepted loops tempered in) and runs the JAX
+package's `smc_loop_relaxation` (N particles, default 1,024; 8 stages x 2
+MALA moves; key 0) and the port's on the CPU with the same draws, in each
+of `smoother_variants`: it prints each run's log evidence, its drop from
+the true loops', the ESS per stage, the stages that resampled, the
+acceptance and the two packages' largest difference.
+
 Run with `PYTHONPATH= JAX_PLATFORMS=cpu` from the repository root; the
-scan-to-map and candidates records need `JAX_ENABLE_X64=1`.
+scan-to-map, candidates, posterior and smoother records need
+`JAX_ENABLE_X64=1`.
 """
 
 from __future__ import annotations
@@ -243,6 +263,157 @@ def verify_pairs(seq, tum, *pairs):
                               "torch_fitness": float(tfit[n])}), flush=True)
 
 
+def _cli_slam(seq, tum):
+    """The JAX CLI's `slam --optimize-every 15` on SEQ, its trajectory
+    written to TUM: (its `RadarGraphSLAM`, wall seconds)."""
+    import gorio_tpu.cli as cli
+    import gorio_tpu.pipeline.slam as slam_mod
+
+    made = []
+
+    class Caught(slam_mod.RadarGraphSLAM):
+        def __post_init__(self):
+            super().__post_init__()
+            made.append(self)
+
+    slam_mod.RadarGraphSLAM = Caught
+    t0 = time.perf_counter()
+    cli.main(["slam", "--dataset", str(seq), "--output", str(tum), "--optimize-every", "15"])
+    return made[0], time.perf_counter() - t0
+
+
+def posterior(seq, tum):
+    """The JAX package's `sample_posterior` on the keyframes of its CLI's
+    circuit run."""
+    import jax
+    import jax.numpy as jnp
+
+    assert jax.config.jax_enable_x64, "run with JAX_ENABLE_X64=1"
+    slam, t_slam = _cli_slam(seq, tum)
+    t0 = time.perf_counter()
+    samples, accepts, rhat, cov = slam.sample_posterior(jax.random.PRNGKey(0))
+    jax.block_until_ready(samples)
+    t_post = time.perf_counter() - t0
+    n = cov.shape[0]
+    print(json.dumps({
+        "keyframes": len(slam.keyframes), "loops": len(slam.loops), "dofs": int(n),
+        "accept": float(jnp.mean(accepts)), "rhat_max": float(jnp.max(rhat)),
+        "laplace_std_last_pose": float(jnp.mean(jnp.sqrt(jnp.diag(cov)[n - 6:]))),
+        "finite": bool(jnp.isfinite(samples).all()), "slam_s": t_slam,
+        "sample_posterior_s": t_post}), flush=True)
+
+
+BOGUS_OFFSET_M, BOGUS_STDDEVS = (20.0, -15.0, 5.0), 255.0
+JAX_TEST_LOOP_SQRT_INFO = 10.0  # `tests/test_smoother.py`'s loop: information 100 I, no Huber
+
+
+def smoother_variants(between, idx, np_like=np.asarray):
+    """`chip_smoke.py`'s smoother runs as edits of the between factors'
+    fields (numpy): name -> {field: array} to replace. The first loop
+    (slot `idx`) moved by [20, -15, 5] m; moved by 255 of its translation
+    stddevs; and replaced by the JAX test's bogus loop (information 100 I,
+    no Huber kernel, its measurement moved by [20, -15, 5] m)."""
+    T = np.array(between["T_meas"])
+    sq = np.array(between["sqrt_info"])[idx, 3:, 3:]
+    stddev = float(np.sqrt(1.0 / np.mean(np.diag(sq.T @ sq))))
+
+    def moved(k):
+        Tk = T.copy()
+        Tk[idx, :3, 3] += k * np.asarray(BOGUS_OFFSET_M)
+        return Tk
+
+    si = np.array(between["sqrt_info"])
+    si[idx] = JAX_TEST_LOOP_SQRT_INFO * np.eye(6)
+    rd = np.array(between["robust_delta"])
+    rd[idx] = np.inf
+    return stddev, {
+        "true loops": {},
+        "first loop moved [20, -15, 5] m": {"T_meas": moved(1.0)},
+        "first loop moved 255 of its stddevs": {
+            "T_meas": moved(BOGUS_STDDEVS * stddev / np.linalg.norm(BOGUS_OFFSET_M))},
+        "the JAX test's bogus loop in place of the first": {
+            "T_meas": moved(1.0), "sqrt_info": si, "robust_delta": rd},
+    }
+
+
+def smoother(seq, tum, n_particles="1024"):
+    """The JAX package's `smc_loop_relaxation` (8 stages x 2 moves, one
+    CPU device) and the port's on the CPU, on the JAX CLI's circuit
+    keyframes built as `chip_smoke.py`'s smoother graph, with the same
+    draws (rebuilt from the JAX key), in each of `smoother_variants`."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from jax.sharding import Mesh
+
+    from gorio_tpu.graph.graph import PoseGraph
+    from gorio_tpu.inference import smoother as js
+    from gorio_tpu_torch.convert import graph_from_numpy
+    from gorio_tpu_torch.inference import smoother as ts
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_posterior import smoother_draws
+
+    assert jax.config.jax_enable_x64, "run with JAX_ENABLE_X64=1"
+    slam, t_slam = _cli_slam(seq, tum)
+    kfs = slam.keyframes
+    g = PoseGraph()
+    for kf in kfs:
+        g.add_pose(kf.odom_scan2scan)
+    g.add_prior(0, kfs[0].odom_scan2scan, info=np.eye(6) * slam.cfg.anchor_info)
+    for k in range(1, len(kfs)):
+        prev, curr = kfs[k - 1], kfs[k]
+        g.add_between(k - 1, k, np.linalg.inv(prev.odom_scan2scan) @ curr.odom_scan2scan,
+                      info=curr.edge_info)
+        if curr.trans_integrated is not None:
+            var = np.clip(np.diag(curr.preint_cov), 1e-6, None)
+            g.add_between(k - 1, k, curr.trans_integrated, info=np.diag(1.0 / var))
+    slots = []
+    for loop in slam.loops:
+        slots.append(len(g._between))
+        g.add_between(loop.key_old, loop.key_new, loop.T_rel, info=loop.information,
+                      robust_delta=slam.cfg.loop_robust_delta)
+    poses0, data = g.freeze()
+    mask = np.zeros(data.between.mask.shape[0], bool)
+    mask[slots] = True
+    # the preconditioner's eager `build_normal_equations` compiles per
+    # primitive; the same function under `jax.jit`
+    js.build_normal_equations = jax.jit(js.build_normal_equations)
+    mesh = Mesh(np.asarray(jax.devices()[:1]), ("dp",))
+    N, S, M = int(n_particles), 8, 2
+    key = jax.random.PRNGKey(0)
+    draws = smoother_draws(key, N, poses0.shape[0] * 6, S, M)
+    stddev, variants = smoother_variants(data.between._asdict(), slots[0])
+    rec = {"keyframes": len(kfs), "loops": len(slots), "particles": N, "stages": S, "moves": M,
+           "first_loop_stddev_m": stddev, "slam_s": t_slam}
+    for name, edit in variants.items():
+        bw = data.between._replace(**{k: jnp.asarray(v) for k, v in edit.items()})
+        gv = data._replace(between=bw)
+        t0 = time.perf_counter()
+        jres = js.smc_loop_relaxation(mesh, poses0, gv, jnp.asarray(mask), n_particles=N,
+                                      n_stages=S, n_moves=M)(key)
+        jax.block_until_ready(jres)
+        t_jax = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tres = ts.smc_loop_relaxation(None, torch.as_tensor(np.asarray(poses0)),
+                                      graph_from_numpy(gv), mask, n_particles=N, n_stages=S,
+                                      n_moves=M)(draws=draws)
+        t_port = time.perf_counter() - t0
+        ess = np.asarray(jres.ess_per_stage)
+        rec[name] = {
+            "log_evidence": float(jres.log_evidence), "ess_per_stage": ess.tolist(),
+            "resampled_stages": int(np.sum(ess < 0.5 * N)),
+            "accept": float(jres.accept_rate), "port_log_evidence": float(tres.log_evidence),
+            "port_max_abs_diff": max(
+                float(np.max(np.abs(getattr(tres, f).numpy() - np.asarray(getattr(jres, f)))))
+                for f in ts.SmootherResult._fields),
+            "jax_s": t_jax, "port_s": t_port}
+        if name != "true loops":
+            rec[name]["drop"] = rec["true loops"]["log_evidence"] - rec[name]["log_evidence"]
+        print(json.dumps({name: rec[name]}), flush=True)
+    print(json.dumps(rec), flush=True)
+
+
 def candidates_diff(a, b):
     """Print where two `candidates` records differ."""
     ra, rb = (json.loads(Path(p).read_text()) for p in (a, b))
@@ -268,6 +439,10 @@ if __name__ == "__main__":
         candidates_diff(*sys.argv[2:4])
     elif sys.argv[1] == "verify-pairs":
         verify_pairs(*sys.argv[2:])
+    elif sys.argv[1] == "posterior":
+        posterior(*sys.argv[2:4])
+    elif sys.argv[1] == "smoother":
+        smoother(*sys.argv[2:5])
     else:
         {"scan-to-map": scan_to_map, "align": align, "slice-map": slice_map}[sys.argv[1]](
             *sys.argv[2:])

@@ -231,8 +231,8 @@ def test_port_runs_without_jax(runs, full_runs, tmp_path):
     gorio_tpu` (and every submodule) fail runs the port's whole slice, loop
     closure on: simulate, slam (the default path, the paper's four flags
     with `--config` of `dump-config`'s tree, `--dump` and `--map`, and
-    `--registration ndt`), stream, evaluate, align — with the same results
-    as this process (with loops off: the 4 s sequence never passes the 50 m
+    `--registration ndt`), stream, evaluate, align, `sample_posterior` and
+    the loop smoother — with the same results as this process (with loops off: the 4 s sequence never passes the 50 m
     gate; the config tree's defaults are the flags').
     (An import hook blocks them: a `sys.modules['jax'] = None` entry trips
     scipy's array-API helper, which looks the module up by name.)"""
@@ -246,10 +246,26 @@ def test_port_runs_without_jax(runs, full_runs, tmp_path):
         "sys.meta_path.insert(0, NoJax())\n"
         "from gorio_tpu_torch.cli import main\n"
         f"main(['simulate', '--output', 'seq', *{SIM!r}])\n"
-        f"main(['slam', '--dataset', 'seq', '--output', {str(tmp_path / 'e.tum')!r},"
-        " '--capacity', '512', '--device', 'cpu'])\n"
+        f"slam = main(['slam', '--dataset', 'seq', '--output', {str(tmp_path / 'e.tum')!r},"
+        " '--capacity', '512', '--device', 'cpu'])[0]\n"
         f"r = main(['evaluate', {str(tmp_path / 'e.tum')!r}, 'seq/groundtruth.tum'])\n"
         "assert r['ate_rmse_m'] < 0.05\n"
+        "import numpy as np, torch\n"
+        "s, a, rh, c = slam.sample_posterior(torch.Generator().manual_seed(0), n_chains=2,"
+        " n_samples=4, window=4)\n"
+        "assert s.shape == (2, 4, 24) and bool(torch.isfinite(s).all()) and c.shape == (24, 24)\n"
+        "from gorio_tpu_torch.graph.graph import PoseGraph\n"
+        "from gorio_tpu_torch.inference import smc, smoother\n"
+        "P, g = slam.trajectory()[1][:6], PoseGraph()\n"
+        "for T in P: g.add_pose(T)\n"
+        "g.add_prior(0, P[0], np.eye(6) * 1e6)\n"
+        "for k in range(6): g.add_between(k, (k + 1) % 6, np.linalg.inv(P[k]) @ P[(k + 1) % 6],"
+        " np.eye(6) * 100.0)\n"
+        "p0, gd = g.freeze()\n"
+        "m = np.arange(gd.between.mask.shape[0]) == 5\n"
+        "res = smoother.smc_loop_relaxation(None, p0, gd, m, n_particles=16, n_stages=2,"
+        " n_moves=1)(torch.Generator().manual_seed(0))\n"
+        "assert np.isfinite(float(res.log_evidence)) and smoother.loop_evidence_gate(res)\n"
         "main(['dump-config', '--output', 'c.json'])\n"
         f"main(['slam', '--dataset', 'seq', '--output', {str(tmp_path / 'f.tum')!r},"
         f" '--capacity', '512', '--device', 'cpu', *{FULL!r}, '--config', 'c.json',"
