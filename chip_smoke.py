@@ -171,16 +171,14 @@ Phases, one line each (more for the tables):
                mean are finite, every stage's ESS lies in (1, N], the MALA
                acceptance is > 0.05, the posterior mean's ATE is below the
                odometry's, and the evidence gate passes; then with the
-               first loop moved by [20, -15, 5] m (JAX
-               `test_evidence_rejects_bogus_loop`'s move: 255 stddevs of
-               its loop, a few of the circuit's fitness-based, Huber
-               loops; the drop is printed beside the JAX package's record,
-               `CIRCUIT_SMOOTHER_JAX`, not held), moved by 255 of its own
-               translation stddevs, and replaced by the JAX test's bogus
-               loop (information 100 I, no Huber kernel, moved by [20,
-               -15, 5] m): the last two must lower the log evidence by
-               more than 50, and the last must resample at a stage; prints
-               the peak memory. Last, `run_hmc` (2 chains x 20 draws, the
+               first loop moved by 255 of its own translation stddevs, and
+               replaced by the JAX test's bogus loop (information 100 I, no
+               Huber kernel, moved by [20, -15, 5] m,
+               `test_evidence_rejects_bogus_loop`'s move): each must lower
+               the log evidence by more than 50, and the last must resample
+               at a stage; each drop is printed beside the JAX package's
+               record (`CIRCUIT_SMOOTHER_JAX`, not held); prints the peak
+               memory. Last, `run_hmc` (2 chains x 20 draws, the
                slice's posterior) and `smc_loop_relaxation` (256
                particles, 2 stages, the circuit with the JAX test's bogus
                loop) on the card and on the CPU from the same inputs and
@@ -189,6 +187,49 @@ Phases, one line each (more for the tables):
                must resample at the same stages on both, at least one. The
                launch counts of the three `sample_posterior` runs are the
                path's (`launches_by_path["posterior"]`).
+  13. solvers-batched — cg-slice: `slam --config` with `dump-config`'s tree
+               and `slam.solve.solver = "cg"` on the 98 frames (the dense
+               Jacobi-PCG at 128 padded poses), then `evaluate`: fails
+               unless the slice's launch identity holds, CG solves ran, and
+               the keyframes and loops equal and the ATE lies within 1e-4 m
+               of the JAX package's CPU f64 record of the same command
+               (`CG_SLICE_JAX`); prints the dense slice's ATE beside it.
+               cg-graphs: on the graphs of the runs above (the circuit's
+               final pose graph, 512 padded poses; the full-circuit's and
+               the full-slice's final floor graphs), each solver's ms per LM
+               iteration; the block PCG must end within 1e-6 relative in
+               chi2 and 1 mm (and 1e-3 in rotation entries) of the direct
+               solve (on the full-circuit's first floor graph at 512 padded
+               poses: its final one starts at its own optimum), and two CG solves of the circuit must agree to the
+               bit; the dense Jacobi-PCG's gap to the dense Cholesky is
+               printed, with its gap to the port's CPU run of the same solve;
+               capped at 20 CG steps (before an unconverged CG's late steps
+               amplify rounding) it must equal the CPU run within 1e-6
+               relative and 1e-6 m. batched: bench.py's
+               batched workloads as single batched calls, each against a
+               loop of single calls on the same inputs (1e-9 relative in
+               f64, 1e-5 in f32; UGPM 1e-8, its LM's own noise floor being
+               ~1e-9), with their rates: ego velocity over 64
+               scans of 1,024 points (scans/s; the masks must be equal),
+               UGPM fit and query over 64 windows of G = 128, V = 32 (10 LM
+               iterations; windows/s), NDT DIRECT7 coarse-to-fine over 8
+               jittered sources against the align phase's maps (aligns/s;
+               the same outer iterations per lane). gn: `gn_optimize` on
+               APDGICP's callbacks for slice frames 40 and 41, 8 iterations:
+               `nn1_select` must launch 8 times and T equal the CPU run's
+               within 1e-6. preint: `preintegrate` over the JAX test's 4 s
+               window, `quantum=1.0` against one window, LPM (within 2e-3
+               rad / 2e-2 m, the JAX test's limits) and UGPM (its gaps, which
+               exceed those limits in both packages, within 1e-6 of the JAX
+               record `CHUNKED_JAX`); then, with the start and the queries
+               moved 3.7 / 1.3 ms off the sample grid (where the time-shift
+               Jacobians are one-sided), the card against the CPU within 1e-9
+               per field, or 10x the CPU's own response to a 1e-15 relative
+               move of the gyro samples where that is more; UGPM's covariance
+               is printed, not held (on these noiseless streams it inverts a
+               JtJ that a 1e-15 move of the input shifts by ~5e-5).
+               The launch counts of the cg-slice and of gn are paths of the
+               kernels' line.
 The two sequences are simulated in child processes started at the beginning,
 beside the build and the kernel phase. Then the kernels' JSON line, the card
 line, and the last line `{"ok": true, "device": {...}}`. Any failure exits
@@ -725,7 +766,7 @@ def slice_phase(K, seq, tmp):
           f"trajectory {'equal to the bit' if same else 'DIFFERENT'}", flush=True)
     if not same:
         fail("slice: `slam --config` with the default tree changed the trajectory")
-    return launches, n_kf, slam
+    return launches, n_kf, slam, result["ate_rmse_m"]
 
 
 def repeat_check(seq):
@@ -756,8 +797,9 @@ class SolveTimer:
     UGPM preintegration: wraps the four solvers (pose-only and joint pose +
     plane, dense and block-sparse) and `ugpm_preintegrate` where
     `pipeline/slam.py` calls them, synchronising the card around each, and
-    keeps the last block-sparse call's arguments for a profiled replay.
-    Restores them on exit."""
+    keeps the arguments of each one's last call and of its first call at
+    its largest padded size (the last block-sparse call's for a profiled
+    replay). Restores them on exit."""
 
     SOLVERS = {"dense": "optimize_graph", "sparse": "optimize_graph_sparse",
                "dense_planes": "optimize_graph_with_planes",
@@ -768,6 +810,7 @@ class SolveTimer:
 
         self.what, self.mod = what, slam_mod
         self.solves, self.ugpm_s, self.last_sparse = [], [], None
+        self.last, self.first_largest = {}, {}
         self.orig = {k: getattr(slam_mod, n) for k, n in self.SOLVERS.items()}
         self.orig["ugpm"] = slam_mod.ugpm_preintegrate
 
@@ -777,6 +820,9 @@ class SolveTimer:
         def timed(*args):
             if kind.startswith("sparse"):
                 self.last_sparse = (kind, args)
+            self.last[kind] = args
+            if args[0].shape[0] > self.first_largest.get(kind, (torch.zeros(0),))[0].shape[0]:
+                self.first_largest[kind] = args
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = self.orig[kind](*args)
@@ -904,7 +950,7 @@ def circuit_phase(K, seq, tmp):
     print(f"[circuit] keyframes {n_kf} (JAX {CIRCUIT_JAX['keyframes']}), loops {n_loops} "
           f"(JAX {CIRCUIT_JAX['loops']}), ATE {ate:.6f} m (JAX {CIRCUIT_JAX['ate_m']:.6f} m, "
           f"limit {ate_max:.6f} m)", flush=True)
-    return launches, slam
+    return launches, slam, solves.last["sparse"]
 
 
 def full_phase(K, seq, tmp, what, flags, jax_rec, ate_max, planes_kind):
@@ -951,7 +997,7 @@ def full_phase(K, seq, tmp, what, flags, jax_rec, ate_max, planes_kind):
     print(f"[{what}] keyframes {n_kf} (JAX {jax_kf}), loops {n_loops} (JAX {jax_loops}), ATE "
           f"{ate:.6f} m (JAX {jax_rec['ate_m']:.6f} m, limit {ate_max:.6f} m), RTE "
           f"{result['rte_m']:.6f} m (JAX {jax_rec['rte_m']:.6f} m)", flush=True)
-    return slam, result, launches, (ang, off)
+    return slam, result, launches, (ang, off), solves.first_largest[planes_kind]
 
 
 def floor_gap(floor, rec):
@@ -965,14 +1011,14 @@ def floor_gap(floor, rec):
 
 
 def full_slice_phase(K, seq, tmp):
-    _, _, launches, _ = full_phase(K, seq, tmp, "full-slice", [], FULL_SLICE_JAX, ATE_MAX,
-                                   "dense_planes")
-    return launches
+    _, _, launches, _, last = full_phase(K, seq, tmp, "full-slice", [], FULL_SLICE_JAX, ATE_MAX,
+                                         "dense_planes")
+    return launches, last
 
 
 def full_circuit_phase(K, seq, tmp):
     ate_max = 1.25 * FULL_CIRCUIT_JAX["ate_m"] + 0.02
-    slam, result, launches, (ang, off) = full_phase(
+    slam, result, launches, (ang, off), last = full_phase(
         K, seq, tmp, "full-circuit", ["--optimize-every", "15"], FULL_CIRCUIT_JAX, ate_max,
         "sparse_planes")
     print(f"[full-circuit] loop gate counts of the JAX record {FULL_CIRCUIT_JAX['gate_counts']}",
@@ -989,7 +1035,7 @@ def full_circuit_phase(K, seq, tmp):
              f"(limits {FLOOR_NORMAL_RAD} rad, {FLOOR_OFFSET_M} m)")
     if FULL_CIRCUIT_JAX["loops"] and not slam.loops:
         fail("full-circuit: no loop accepted")
-    return launches
+    return launches, slam, last
 
 
 def ndt_slice_phase(K, seq, tmp):
@@ -1318,7 +1364,7 @@ def align_phase(K, tmp):
         print(f"[align] {CARD}: NDT DIRECT7 {name} (bench.py's protocol, capacity {cap}): "
               f"{ms:.2f} ms per align (median of 5), {int(res.iterations)} outer iterations, "
               f"score {float(res.error):.2f}", flush=True)
-    return launches
+    return launches, (source, vmap_c, vmap_t, cfg)
 
 
 # ---- posterior -------------------------------------------------------------
@@ -1348,7 +1394,6 @@ JAX_TEST_LOOP_SQRT_INFO = 10.0
 # its drop in each other run, the stages resampled; printed, not held
 CIRCUIT_SMOOTHER_JAX = {
     "true loops": {"log_evidence": -7.557912588705501, "resampled_stages": 0},
-    "first loop moved [20, -15, 5] m": {"drop": 2.3959002016217736, "resampled_stages": 0},
     "first loop moved 255 of its stddevs": {"drop": 127.34440978114125, "resampled_stages": 0},
     "the JAX test's bogus loop in place of the first": {"drop": 53775.3127072056,
                                                         "resampled_stages": 8},
@@ -1587,12 +1632,11 @@ def smoother_graph(slam, device="cuda"):
 
 def smoother_variants(graph, mask):
     """The runs of the smoother phase, name -> graph: the true loops; the
-    first loop moved by [20, -15, 5] m (JAX's move; the circuit's loops
-    carry the fitness-based information of the reference, a translation
-    stddev of metres, and a Huber kernel, so this is a few stddevs); moved
-    by 255 of its own translation stddevs; and replaced by the JAX test's
-    bogus loop (information 100 I, no Huber kernel, moved by [20, -15, 5] m:
-    255 stddevs). Also returns the first loop's stddev (m)."""
+    first loop moved by 255 of its own translation stddevs (the circuit's
+    loops carry the fitness-based information of the reference, a
+    translation stddev of metres, and a Huber kernel); and replaced by the
+    JAX test's bogus loop (information 100 I, no Huber kernel, moved by
+    [20, -15, 5] m: 255 stddevs). Also returns the first loop's stddev (m)."""
     import numpy as np
     import torch
 
@@ -1615,7 +1659,6 @@ def smoother_variants(graph, mask):
     scale = BOGUS_STDDEVS * stddev / float(torch.linalg.norm(offset))
     return stddev, {
         "true loops": graph,
-        "first loop moved [20, -15, 5] m": edit(1.0),
         "first loop moved 255 of its stddevs": edit(scale),
         "the JAX test's bogus loop in place of the first": edit(1.0, jax_loop=True),
     }
@@ -1630,10 +1673,8 @@ def resampled(res, n):
 def smoother_phase(slam, seq):
     """`smc_loop_relaxation` over the circuit at 10,240 particles, in each
     of `smoother_variants`: the true loops hold the JAX test's checks;
-    moving the first loop by [20, -15, 5] m is printed beside the JAX
-    package's record; moving it 255 of its stddevs and the JAX test's bogus
-    loop must each lower log Z by more than 50, and the latter must
-    resample. Returns the circuit's poses, the JAX test's bogus loop's
+    moving the first loop 255 of its stddevs and the JAX test's bogus loop
+    must each lower log Z by more than 50, and the latter must resample. Returns the circuit's poses, the JAX test's bogus loop's
     graph and the loop mask."""
     import numpy as np
     import torch
@@ -1685,7 +1726,7 @@ def smoother_phase(slam, seq):
             if not loop_evidence_gate(res):
                 fail(f"smoother: loop_evidence_gate rejects the true loops (log Z "
                      f"{logz[what]:.4f})")
-        elif what != "first loop moved [20, -15, 5] m" and not drop > BOGUS_DROP:
+        elif not drop > BOGUS_DROP:
             fail(f"smoother: {what}: log evidence lower by only {drop:.4f} (must exceed "
                  f"{BOGUS_DROP})")
         if what.startswith("the JAX test's") and not rs:
@@ -1770,6 +1811,434 @@ def posterior_phase(K, slice_slam, circuit_slam, circuit_seq):
     return launches
 
 
+# ---- solvers-batched -------------------------------------------------------
+
+# The JAX package's CPU f64 record of `slam --config` with `dump-config`'s
+# tree and slam.solve.solver = "cg" on the slice (`PYTHONPATH=
+# JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 python tests/jax_records.py cg-slice SEQ
+# OUT`; its dense run is ROADMAP's 80 keyframes, 0.014179 m)
+CG_SLICE_JAX = {"keyframes": 80, "loops": 0, "ate_m": 0.014178711904797445,
+                "rte_m": 0.022326770313002297}
+CG_SLICE_ATE_M = 1e-4  # the cg-slice's ATE against the JAX record
+CG_CHI2_RTOL, CG_POSE_M = 1e-6, 1e-3  # block PCG against the direct solve
+CG_CPU_CHI2_RTOL, CG_CPU_POSE_M = 1e-6, 1e-6  # dense Jacobi-PCG: the card against the CPU
+# ... held at this step cap: an unconverged Jacobi-PCG of 100 steps on a floor
+# graph moves by ~1e-4-1e-3 m under a reordered matvec on one CPU (the
+# rounding of its late steps decides where it stops), so the card and the
+# CPU part there; the default's gaps are printed
+CG_CPU_STEPS = 20
+BATCH_RTOL = {"torch.float64": 1e-9, "torch.float32": 1e-5}  # a batch against its loop
+# UGPM's: its LM solves (damping down to 1e-6 x 0.33^k) carry the last-bit
+# differences of batched against single products to ~1e-9 of each field
+# (2.6e-9 on the card, 1.1e-9 on the CPU), the noise floor of one window's
+# own result; held at the port's single-window limit against the JAX
+# package (`tests/test_torch_ugpm.py`)
+UGPM_BATCH_RTOL = 1e-8
+EGO_B, EGO_N = 64, 1024  # bench.py:491-505
+UGPM_W, UGPM_G, UGPM_V, UGPM_Q = 64, 128, 32, 256  # bench.py:507-548
+NDT_B = 8  # bench.py:276-298
+GN_ITERS = 8
+CHUNK_RAD, CHUNK_M = 2e-3, 2e-2  # JAX `test_chunked_preintegration_matches_single`
+# The JAX package's CPU f64 gaps between `quantum=1.0` and one window on that
+# test's input (`PYTHONPATH= JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 python
+# tests/jax_records.py preint-chunked`): UGPM's exceed the test's LPM limits
+# in both packages, so UGPM is held to the record's gaps instead
+CHUNKED_JAX = {"lpm": {"rad": 0.0004720585830339202, "m": 0.0006514350457613033},
+               "ugpm": {"rad": 0.0038930662055908258, "m": 0.00890275712416877}}
+CHUNKED_JAX_TOL = 1e-6
+CARD_CPU_PREINT = 1e-9
+
+
+def _sync_s(fn):
+    """(fn(), seconds) with the card synchronised around it."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _rel_gap(got, want):
+    """Largest |got - want| over the largest |want|, of tensors or tuples."""
+    gaps = [float((g.double().cpu() - w.double().cpu()).abs().max())
+            / max(float(w.double().abs().max()), 1e-300)
+            for g, w in zip(got, want) if g is not None and g.numel()]
+    return max(gaps) if gaps else 0.0
+
+
+def cg_slice_phase(K, seq, tmp, dense_ate):
+    """`slam --config` with dump-config's tree and solver "cg" on the
+    slice: the dense Jacobi-PCG at 128 padded poses, through both kernels."""
+    from gorio_tpu_torch.cli import main as cli
+
+    cli(["dump-config", "--output", str(tmp / "cg.json")])
+    tree = json.loads((tmp / "cg.json").read_text())
+    tree["slam"]["solve"]["solver"] = "cg"
+    (tmp / "cg.json").write_text(json.dumps(tree))
+    with SolveTimer("cg-slice") as solves:
+        slam, odo, timer, launches, batched, wall, result = run_slam(
+            K, seq, tmp / "cg_slice.tum", ["--config", str(tmp / "cg.json")])
+    lm_iters, verify_iters = check_common("cg-slice", slam, odo, launches)
+    report("cg-slice", len(list(seq.glob("*.grf"))), slam, timer, launches, batched, wall,
+           result, lm_iters, verify_iters)
+    solves.report()
+    n_kf, ate, rec = len(slam.keyframes), result["ate_rmse_m"], CG_SLICE_JAX
+    print(f"[cg-slice] keyframes {n_kf} (JAX {rec['keyframes']}), ATE {ate:.6f} m (JAX CPU f64 "
+          f"{rec['ate_m']:.6f} m, limit +-{CG_SLICE_ATE_M} m; the dense slice's ATE "
+          f"{dense_ate:.6f} m), CG solves {slam.solver_counts['cg']}", flush=True)
+    if slam.solver_counts["cg"] == 0:
+        fail(f"cg-slice: no CG solve ran ({slam.solver_counts})")
+    if n_kf != rec["keyframes"] or len(slam.loops) != rec["loops"]:
+        fail(f"cg-slice: {n_kf} keyframes, {len(slam.loops)} loops; the JAX record "
+             f"{rec['keyframes']}, {rec['loops']}")
+    if not abs(ate - rec["ate_m"]) <= CG_SLICE_ATE_M:
+        fail(f"cg-slice: ATE {ate} m, the JAX record {rec['ate_m']} m +- {CG_SLICE_ATE_M} m")
+    return launches
+
+
+def _to_cpu(args):
+    """A solver call's arguments on the CPU (tensors and tuples of tensors;
+    the config as it is)."""
+    import torch
+
+    def move(x):
+        if isinstance(x, torch.Tensor):
+            return x.cpu()
+        if isinstance(x, tuple) and not hasattr(x, "solver"):
+            return type(x)(*(move(y) for y in x))
+        return x
+
+    return tuple(move(a) for a in args)
+
+
+def _solve_line(what, solver, res, s):
+    iters = int(res.iterations)
+    print(f"[cg-graphs] {CARD}: {what} {solver}: {iters} LM iterations, {s:.3f} s, "
+          f"{1e3 * s / max(iters, 1):.2f} ms per LM iteration, chi2 {float(res.chi2):.9g}",
+          flush=True)
+
+
+def _pose_gap(a, b):
+    """(largest translation gap m, largest rotation-entry gap) of two pose
+    sets."""
+    return (float((a[:, :3, 3] - b[:, :3, 3]).abs().max()),
+            float((a[:, :3, :3] - b[:, :3, :3]).abs().max()))
+
+
+def cg_graphs_phase(graphs):
+    """CG against the direct (or dense) solve on graphs the slam runs built:
+    the circuit's final pose graph, the full-circuit's first floor graph at
+    512 padded poses (its final one starts at its own optimum: 360
+    keyframes are 24 x 15, so the last `--optimize-every` cycle has solved
+    it already and every LM step is rejected), and the full-slice's floor
+    graph."""
+    import torch
+
+    from gorio_tpu_torch.graph.solver import optimize_graph_with_planes
+    from gorio_tpu_torch.graph.sparse import (optimize_graph_sparse,
+                                              optimize_graph_with_planes_sparse)
+
+    for what, fn in (("circuit", optimize_graph_sparse),
+                     ("full-circuit", optimize_graph_with_planes_sparse)):
+        *graph, cfg = graphs[what]
+        ref, s_ref = _sync_s(lambda: fn(*graph, cfg._replace(solver="direct")))
+        cg, s_cg = _sync_s(lambda: fn(*graph, cfg._replace(solver="cg")))
+        _solve_line(f"{what} ({graph[0].shape[0]} padded poses)", "direct", ref, s_ref)
+        _solve_line(f"{what} ({graph[0].shape[0]} padded poses)", "cg", cg, s_cg)
+        dt, dr = _pose_gap(cg.poses, ref.poses)
+        rel = abs(float(cg.chi2) - float(ref.chi2)) / abs(float(ref.chi2))
+        extra = ""
+        if hasattr(cg, "planes"):
+            extra = f", planes {float((cg.planes - ref.planes).abs().max()):.3g} apart"
+        print(f"[cg-graphs] {what}: CG against direct: chi2 {rel:.3g} relative, poses "
+              f"{dt:.3g} m / {dr:.3g} (rotation entries){extra}; the solves moved the poses by "
+              f"up to {_pose_gap(ref.poses, graph[0])[0]:.3g} m", flush=True)
+        if not (rel <= CG_CHI2_RTOL and dt <= CG_POSE_M and dr <= CG_POSE_M):
+            fail(f"{what}: CG ends chi2 {rel:.3g} relative and {dt:.3g} m / {dr:.3g} from the "
+                 f"direct solve (limits {CG_CHI2_RTOL}, {CG_POSE_M} m)")
+        if what == "circuit":
+            again, _ = _sync_s(lambda: fn(*graph, cfg._replace(solver="cg")))
+            same = (torch.equal(again.poses, cg.poses) and torch.equal(again.chi2, cg.chi2)
+                    and int(again.iterations) == int(cg.iterations))
+            print(f"[cg-graphs] circuit: a second CG solve "
+                  f"{'agrees to the bit' if same else 'DIFFERS'}", flush=True)
+            if not same:
+                fail("circuit: two CG solves of one graph differ")
+
+    *graph, cfg = graphs["full-slice"]
+    what = f"full-slice ({graph[0].shape[0]} padded poses, dense)"
+    ref, s_ref = _sync_s(lambda: optimize_graph_with_planes(*graph, cfg._replace(solver="dense")))
+    _solve_line(what, "dense", ref, s_ref)
+    cpu_graph = _to_cpu(graph)
+    for cg_iters in (cfg.cg_iters, CG_CPU_STEPS):
+        ccfg = cfg._replace(solver="cg", cg_iters=cg_iters)
+        cg, s_cg = _sync_s(lambda: optimize_graph_with_planes(*graph, ccfg))
+        _solve_line(what, f"cg ({cg_iters} steps at most)", cg, s_cg)
+        dt, dr = _pose_gap(cg.poses, ref.poses)
+        t0 = time.perf_counter()
+        cpu = optimize_graph_with_planes(*cpu_graph, ccfg)
+        s_cpu = time.perf_counter() - t0
+        rel = abs(float(cg.chi2) - float(cpu.chi2)) / abs(float(cpu.chi2))
+        dtc, drc = _pose_gap(cg.poses.cpu(), cpu.poses)
+        held = cg_iters == CG_CPU_STEPS
+        print(f"[cg-graphs] full-slice, Jacobi-PCG of {cg_iters} steps: against the dense "
+              f"Cholesky chi2 {float(cg.chi2) / float(ref.chi2) - 1:.3g} relative, poses "
+              f"{dt:.3g} m / {dr:.3g}; the card against the CPU ({int(cpu.iterations)} LM "
+              f"iterations, {s_cpu:.1f} s there) chi2 {rel:.3g} relative, poses {dtc:.3g} m / "
+              f"{drc:.3g} ({'held' if held else 'printed, not held'})", flush=True)
+        if held and not (rel <= CG_CPU_CHI2_RTOL and dtc <= CG_CPU_POSE_M
+                         and drc <= CG_CPU_POSE_M):
+            fail(f"full-slice: the card's CG ends chi2 {rel:.3g} relative and {dtc:.3g} m / "
+                 f"{drc:.3g} from the CPU's (limits {CG_CPU_CHI2_RTOL}, {CG_CPU_POSE_M} m)")
+
+
+def _rate_line(what, unit, n, s_batch, s_loop, err, dtype, extra="", limit=None):
+    limit = BATCH_RTOL[str(dtype)] if limit is None else limit
+    print(f"[batched] {CARD}: {what}: batch {n / s_batch:.1f} {unit}/s ({1e3 * s_batch:.2f} ms "
+          f"per batch of {n}), loop of single calls {n / s_loop:.1f} {unit}/s; largest gap to "
+          f"the loop {err:.3g} relative ({dtype}, limit {limit}){extra}", flush=True)
+    if not err <= limit:
+        fail(f"{what}: the batch is {err:.3g} from its loop of single calls")
+
+
+def ego_batch():
+    """`estimate_ego_velocity` over 64 scans of 1,024 points against 64
+    single calls on the same scans and draws."""
+    import numpy as np
+    import torch
+
+    from gorio_tpu_torch.core.pointcloud import PointCloud
+    from gorio_tpu_torch.estimators.egovel import (EgoVelConfig, _gate, draw_hypotheses,
+                                                   estimate_ego_velocity)
+    from gorio_tpu_torch.io.synthetic import make_world, render_radar_scan
+
+    rng = np.random.default_rng(2)
+    world = make_world(seed=2, n_landmarks=4000)
+    scans = [render_radar_scan(world, np.eye(3), np.zeros(3), rng.normal(size=3) * [2, 0.5, 0.1],
+                               capacity=EGO_N, seed=100 + b, azimuth_fov_deg=56.5,
+                               elevation_fov_deg=22.5) for b in range(EGO_B)]
+    batch = PointCloud(*(torch.stack(xs).to("cuda") for xs in zip(*scans)))
+    cfg = EgoVelConfig()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    hyp = draw_hypotheses(_gate(batch, cfg)[0], cfg.ransac_iter, cfg.n_ransac_points, gen)
+    got, s_batch = _sync_s(lambda: estimate_ego_velocity(batch, cfg, hyp_idx=hyp))
+
+    def loop():
+        return [estimate_ego_velocity(PointCloud(*(x[b] for x in batch)), cfg, hyp_idx=hyp[b])
+                for b in range(EGO_B)]
+
+    loop()  # warm
+    one, s_loop = _sync_s(loop)
+    err = max(_rel_gap((got.v[b], got.sigma[b]), (r.v, r.sigma)) for b, r in enumerate(one))
+    masks = all(torch.equal(got.inlier_mask[b], r.inlier_mask) and torch.equal(got.ok[b], r.ok)
+                for b, r in enumerate(one))
+    s_batch = call_ms(lambda: estimate_ego_velocity(batch, cfg, hyp_idx=hyp), repeats=10,
+                      warmup=2) / 1e3
+    _rate_line(f"ego-velocity ({EGO_B} scans of {EGO_N} points)", "scans", EGO_B, s_batch, s_loop,
+               err, batch.xyz.dtype, f", masks {'equal' if masks else 'DIFFERENT'}, "
+               f"{int(got.ok.sum())} ok, {int(got.zero_velocity.sum())} at zero velocity")
+    if not masks:
+        fail("ego-velocity: the batch's inlier masks differ from its loop's")
+
+
+def ugpm_batch():
+    """`ugpm_fit` and `ugpm_query` over 64 windows (bench.py's inputs)
+    against 64 single calls."""
+    import numpy as np
+    import torch
+
+    from gorio_tpu_torch.preintegration.ugpm import UGPMConfig, ugpm_fit, ugpm_query
+
+    rng = np.random.default_rng(0)
+    dev, dt = torch.device("cuda"), torch.float64
+    W, G, V, Q = UGPM_W, UGPM_G, UGPM_V, UGPM_Q
+    gyr_t = torch.as_tensor(np.linspace(0, 1.0, G)[None].repeat(W, 0), dtype=dt, device=dev)
+    vel_t = torch.as_tensor(np.linspace(0, 1.0, V)[None].repeat(W, 0), dtype=dt, device=dev)
+    gyr = torch.as_tensor(rng.normal(scale=0.2, size=(W, G, 3)), dtype=dt, device=dev)
+    vel = torch.as_tensor(rng.normal(scale=1.0, size=(W, V, 3)), dtype=dt, device=dev)
+    starts = torch.full((W,), 0.2, dtype=dt, device=dev)
+    queries = torch.as_tensor(np.linspace(0.25, 0.75, Q)[None].repeat(W, 0), dtype=dt,
+                              device=dev)
+    cfg = UGPMConfig(window_duration=0.6, lm_iters=10)
+    fit = lambda: ugpm_fit(gyr_t, gyr, vel_t, vel, starts, 1e-4, 1e-3, cfg)  # noqa: E731
+    state, _ = _sync_s(fit)  # warm
+    state, s_fit = _sync_s(fit)
+    got, s_query = _sync_s(lambda: ugpm_query(state, starts, queries))
+
+    def loop():
+        return [ugpm_query(ugpm_fit(gyr_t[w], gyr[w], vel_t[w], vel[w], starts[w], 1e-4, 1e-3,
+                                    cfg), starts[w], queries[w]) for w in range(W)]
+
+    one, s_loop = _sync_s(loop)
+    err = max(_rel_gap(tuple(x[w] for x in got), r) for w, r in enumerate(one))
+    _rate_line(f"UGPM fit + query ({W} windows, G = {G}, V = {V}, Q = {Q}, 10 LM iterations)",
+               "windows", W, s_fit + s_query, s_loop, err, dt,
+               f"; the fit {1e3 * s_fit:.2f} ms, the query {1e3 * s_query:.2f} ms "
+               f"({W * Q / s_query:.0f} points/s)", limit=UGPM_BATCH_RTOL)
+
+
+def ndt_batch(align_maps):
+    """`ndt_align_multires` over 8 jittered sources against the align
+    phase's maps (bench.py's protocol) against 8 single aligns."""
+    import torch
+
+    from gorio_tpu_torch.core.pointcloud import PointCloud
+    from gorio_tpu_torch.registration.ndt import ndt_align_multires
+
+    source, vmap_c, vmap_t, cfg = align_maps
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    jitter = 0.05 * torch.randn(NDT_B, 3, generator=gen, device="cuda", dtype=source.xyz.dtype)
+    srcs = PointCloud(*(torch.stack([x] * NDT_B) for x in source))
+    srcs = srcs._replace(xyz=srcs.xyz + jitter[:, None, :])
+    eye = torch.eye(4, device="cuda", dtype=source.xyz.dtype)
+    got, s_batch = _sync_s(lambda: ndt_align_multires(srcs, vmap_c, vmap_t, eye, cfg))
+
+    def loop():
+        return [ndt_align_multires(PointCloud(*(x[b] for x in srcs)), vmap_c, vmap_t, eye, cfg)
+                for b in range(NDT_B)]
+
+    one, s_loop = _sync_s(loop)
+    err = max(_rel_gap((got.T[b], got.error[b]), (r.T, r.error)) for b, r in enumerate(one))
+    iters = got.iterations.tolist()
+    same_iters = iters == [int(r.iterations) for r in one]
+    _, s_batch = _sync_s(lambda: ndt_align_multires(srcs, vmap_c, vmap_t, eye, cfg))
+    _rate_line(f"NDT DIRECT7 coarse-to-fine ({NDT_B} sources of capacity "
+               f"{source.xyz.shape[0]})", "aligns", NDT_B, s_batch, s_loop, err, source.xyz.dtype,
+               f"; outer iterations per lane {iters} "
+               f"({'the loop' if same_iters else 'NOT the loop'}'s)")
+    if not same_iters:
+        fail(f"ndt batch: lane iterations {iters} differ from the loop's")
+
+
+def gn_phase(K, seq):
+    """`gn_optimize` on APDGICP's callbacks for one slice frame pair, 8
+    iterations on the card: `nn1_select` launches 8 times; T equals the
+    CPU run's."""
+    import torch
+
+    from gorio_tpu_torch.core.pointcloud import make_cloud
+    from gorio_tpu_torch.io.native import NativePipelineDataset
+    from gorio_tpu_torch.registration import gn_optimize
+    from gorio_tpu_torch.registration.gicp import GICPConfig, make_gicp_callbacks, prepare_gicp
+
+    frames = [torch.tensor(packed[:n], dtype=torch.float64) for _, n, packed in
+              NativePipelineDataset(sorted(seq.glob("*.grf"))[40:42], capacity=MAIN_N)]
+    cfg = GICPConfig(mode="apdgicp")
+
+    def run(device):
+        tgt, src = (make_cloud(f[:, :3].to(device), intensity=f[:, 3].to(device),
+                               doppler=f[:, 4].to(device), capacity=MAIN_N) for f in frames)
+        lin, _ = make_gicp_callbacks(prepare_gicp(src, tgt, cfg), cfg)
+        T0 = torch.eye(4, dtype=torch.float64, device=device)
+        K.reset_launch_counts()
+        res = gn_optimize(lin, T0, iterations=GN_ITERS)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return res, dict(K.launch_counts)
+
+    res, launches = run("cuda")
+    cpu, _ = run("cpu")
+    gap = float((res.T.cpu() - cpu.T).abs().max())
+    print(f"[gn] {CARD}: gn_optimize, {GN_ITERS} iterations on APDGICP's callbacks (frames 40 "
+          f"and 41 of the slice): launches {launches}, T {res.T[:3, 3].tolist()}, the CPU's "
+          f"within {gap:.3g}", flush=True)
+    if launches["nn1_select"] != GN_ITERS:
+        fail(f"gn: nn1_select launched {launches['nn1_select']} times, not {GN_ITERS}")
+    if not gap <= 1e-6:
+        fail(f"gn: the card's T is {gap:.3g} from the CPU's")
+    return launches
+
+
+def _field_gaps(got, want):
+    """{field: largest |got - want| over the largest |want|} of two
+    PreintMeas."""
+    return {f: _rel_gap((g,), (w,)) for f, g, w in zip(got._fields, got, want)}
+
+
+def chunked_preint_phase():
+    """`preintegrate` over the JAX test's 4 s window on the card, one window
+    against `quantum=1.0` (LPM and UGPM); then the card against the CPU on
+    the same streams with the start and the queries moved off the 200 Hz
+    sample grid (at a sample time the time-shift Jacobians have two
+    one-sided values, and rounding picks one): each field within
+    CARD_CPU_PREINT, or within 10x of what the CPU's own result moves when
+    the gyro samples move by 1e-15 relative, where that is more. UGPM's
+    covariance is printed, not held: on these noiseless streams (variances
+    1e-6) the window's state covariance inverts a JtJ so ill-conditioned
+    that a 1e-15 move of the input moves it by ~5e-5 and another LU by
+    ~2e-3."""
+    import numpy as np
+    import torch
+
+    from gorio_tpu_torch.core.lie import rotation_geodesic_angle
+    from gorio_tpu_torch.io.synthetic import sample_imu, simulate_trajectory
+    from gorio_tpu_torch.preintegration import preintegrate
+
+    traj = simulate_trajectory(seed=12, duration=4.0)
+    imu = sample_imu(traj, gyr_rate=200.0, vel_rate=20.0, gyr_std=0.0, vel_std=0.0, seed=13)
+    arrays = (imu.gyr_t, imu.gyr, imu.vel_t, imu.vel)
+
+    def run(method, device, start, queries, quantum, scale=1.0):
+        args = [torch.as_tensor(a, dtype=torch.float64, device=device) for a in arrays]
+        args[1] = args[1] * scale
+        q = torch.as_tensor(queries, dtype=torch.float64, device=device)
+        return _sync_s(lambda: preintegrate(*args, start, q, 1e-6, 1e-6, method=method,
+                                            quantum=quantum, grid_n=1024))
+
+    queries = np.array([1.1, 2.3, 3.4])
+    off_start, off_queries = 0.5037, queries + 0.0013
+    for method in ("lpm", "ugpm"):
+        (single, s_single), (chunked, s_chunked) = (run(method, "cuda", 0.5, queries, qu)
+                                                    for qu in (-1.0, 1.0))
+        ang = max(float(rotation_geodesic_angle(single.delta_R[i], chunked.delta_R[i]))
+                  for i in range(3))
+        dp = float((single.delta_p - chunked.delta_p).abs().max())
+        rec = CHUNKED_JAX[method]
+        print(f"[preint] {CARD}: preintegrate {method}, 4 s window, queries {queries.tolist()}: "
+              f"one window {1e3 * s_single:.1f} ms, quantum=1.0 {1e3 * s_chunked:.1f} ms; "
+              f"chunked against one window {ang:.6g} rad, {dp:.6g} m (the JAX test's limits "
+              f"{CHUNK_RAD}, {CHUNK_M}; the JAX record's gaps {rec['rad']:.6g} rad, "
+              f"{rec['m']:.6g} m)", flush=True)
+        if not (ang <= CHUNK_RAD and dp <= CHUNK_M) and method == "lpm":
+            fail(f"preint {method}: chunked {ang:.3g} rad / {dp:.3g} m from one window")
+        if not (abs(ang - rec["rad"]) <= CHUNKED_JAX_TOL and abs(dp - rec["m"]) <= CHUNKED_JAX_TOL):
+            fail(f"preint {method}: chunked-to-single gaps {ang:.6g} rad / {dp:.6g} m, the JAX "
+                 f"record's {rec['rad']:.6g} / {rec['m']:.6g} (+- {CHUNKED_JAX_TOL})")
+        for quantum in (-1.0, 1.0):
+            card = run(method, "cuda", off_start, off_queries, quantum)[0]
+            cpu = run(method, "cpu", off_start, off_queries, quantum)[0]
+            moved = run(method, "cpu", off_start, off_queries, quantum, 1.0 + 1e-15)[0]
+            gaps, noise = _field_gaps(card, cpu), _field_gaps(moved, cpu)
+            limit = {f: max(CARD_CPU_PREINT, 10.0 * noise[f]) for f in gaps}
+            print(f"[preint] {method} quantum={quantum}, start {off_start}, queries "
+                  f"{off_queries.tolist()}: the card against the CPU, per field (limit): "
+                  + ", ".join(f"{f} {gaps[f]:.3g} ({limit[f]:.3g})" for f in gaps), flush=True)
+            bad = [f for f in gaps if not gaps[f] <= limit[f]
+                   and not (method == "ugpm" and f == "cov")]
+            if bad:
+                fail(f"preint {method} quantum={quantum}: the card is off the CPU in {bad}")
+
+
+def solvers_batched_phase(K, seq, tmp, dense_ate, graphs, align_maps):
+    """CG on the slice through the CLI and on the graphs in memory, the
+    batched forms, `gn_optimize` and the chunked preintegration."""
+    t0 = time.perf_counter()
+    launches = {"cg-slice": cg_slice_phase(K, seq, tmp, dense_ate)}
+    cg_graphs_phase(graphs)
+    ego_batch()
+    ugpm_batch()
+    ndt_batch(align_maps)
+    launches["gn"] = gn_phase(K, seq)
+    chunked_preint_phase()
+    print(f"[solvers-batched] {CARD}: the phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches
+
+
 def main():
     if not (ROOT / "gorio_tpu_torch" / "ops" / "csrc" / "nn1.cu").is_file():
         fail(f"no gorio_tpu_torch package beside {Path(__file__).name}: run from the repository")
@@ -1824,17 +2293,23 @@ def run_phases(tmp, sims):
     errs, stats, shapes, S_main = kernel_phase(K)
     wait_for(sims["slice"], "slice")
     launches = {}
-    launches["slice"], slice_keyframes, slice_slam = slice_phase(K, tmp / "slice", tmp)
+    launches["slice"], slice_keyframes, slice_slam, slice_ate = slice_phase(
+        K, tmp / "slice", tmp)
     repeat_check(tmp / "slice")
-    launches["full-slice"] = full_slice_phase(K, tmp / "slice", tmp)
+    launches["full-slice"], full_slice_graph = full_slice_phase(K, tmp / "slice", tmp)
     wait_for(sims["circuit"], "circuit")
-    launches["circuit"], circuit_slam = circuit_phase(K, tmp / "circuit", tmp)
-    launches["full-circuit"] = full_circuit_phase(K, tmp / "circuit", tmp)
+    launches["circuit"], circuit_slam, circuit_graph = circuit_phase(K, tmp / "circuit", tmp)
+    launches["full-circuit"], _, full_circuit_graph = full_circuit_phase(
+        K, tmp / "circuit", tmp)
     launches.update(ndt_slice_phase(K, tmp / "slice", tmp))
     launches.update(scan_to_map_phase(K, tmp / "slice"))
-    launches["align"] = align_phase(K, tmp)
+    launches["align"], align_maps = align_phase(K, tmp)
     launches.update(stream_phase(K, tmp / "slice", tmp, slice_keyframes))
     launches["posterior"] = posterior_phase(K, slice_slam, circuit_slam, tmp / "circuit")
+    launches.update(solvers_batched_phase(
+        K, tmp / "slice", tmp, slice_ate,
+        {"circuit": circuit_graph, "full-circuit": full_circuit_graph,
+         "full-slice": full_slice_graph}, align_maps))
 
     replaces = {"nn1": "gorio_tpu/ops/nn_pallas.py:34",
                 "nn1_select": "gorio_tpu/ops/nn_pallas.py:125"}

@@ -2,19 +2,20 @@
 with plane vertices.
 
 Port of `build_normal_equations`, `graph_chi2`, `_solve_dense`,
-`optimize_graph`, `_plane_terms`, `plane_graph_chi2` and
+`_solve_cg`, `optimize_graph`, `_plane_terms`, `plane_graph_chi2` and
 `optimize_graph_with_planes` from `gorio_tpu/graph/solver.py`
 (`GraphSLAM::optimize`, `graph_slam.cpp:353-382`): factor residuals are
 evaluated batched per family, their Jacobians with `torch.func.jacfwd`
 under `torch.func.vmap`, scatter-added into block normal equations, and the
-damped system is solved by a dense Cholesky. The JAX `lax.while_loop`
-becomes a Python loop with the same bound and the same accept/reject rule;
-the host reads the stop flag once per iteration. Matrix products keep full
-float32 on the card (TF32 off, the JAX package's `_f32_matmuls`).
+damped system is solved by a dense Cholesky (`solver="dense"`) or by
+Jacobi-preconditioned conjugate gradients (`solver="cg"`, `pcg`). The JAX
+`lax.while_loop` becomes a Python loop with the same bound and the same
+accept/reject rule; the host reads the stop flag once per iteration. Matrix
+products keep full float32 on the card (TF32 off, the JAX package's
+`_f32_matmuls`).
 
-The block-sparse direct solvers are `graph/sparse.py` (the SLAM back end
-switches to them above 128 padded poses); the CG option is not ported yet
-(ROADMAP A7-sparse-cg).
+The block-sparse solvers are `graph/sparse.py` (the SLAM back end switches
+to them above 128 padded poses).
 """
 
 from __future__ import annotations
@@ -45,8 +46,8 @@ from .factors import (
     retract_plane,
 )
 
-_CG_REFUSED = ("solver='cg' (Jacobi-preconditioned CG) is not ported yet "
-               "(ROADMAP A7-sparse-cg)")
+CG_TOL = 1e-5  # `jax.scipy.sparse.linalg.cg`'s default relative tolerance
+CG_CHECK_EVERY = 10  # CG iterations between two reads of the stop flag
 
 
 @contextlib.contextmanager
@@ -77,7 +78,7 @@ class SolveConfig(NamedTuple):
     lm_lambda_factor: float = 10.0
     rel_tol: float = 1e-9
     # "dense" | "direct" (the sparse path's exact solve; a dense solve here) |
-    # "cg" (ROADMAP A7-sparse-cg)
+    # "cg" (preconditioned conjugate gradients, at most cg_iters steps)
     solver: str = "dense"
     cg_iters: int = 100
     loop_capacity: int = 64
@@ -215,12 +216,70 @@ def _solve_dense(H, b, lam):
     return torch.where(info == 0, x, torch.full_like(x, float("nan")))
 
 
+def _dot(a, b):
+    """Sum of the elementwise products over tuples of tensors (JAX's
+    `_vdot_real_tree`, leaf by leaf in order)."""
+    out = None
+    for x, y in zip(a, b):
+        d = torch.vdot(x.reshape(-1), y.reshape(-1))
+        out = d if out is None else out + d
+    return out
+
+
+def pcg(mv, b, precond, iters: int, check_every: int = CG_CHECK_EVERY):
+    """Preconditioned conjugate gradients on tuples of tensors: the rule of
+    `jax.scipy.sparse.linalg.cg` with x0 = 0, atol = 0. r0 = b, z = M r,
+    gamma = r.z; each step alpha = gamma / p.Ap, x += alpha p, r -= alpha Ap,
+    z = M r, beta = gamma' / gamma, p = z + beta p; it stops once
+    r.r <= CG_TOL^2 b.b (with a preconditioner JAX compares r.r, not
+    gamma) or after `iters` steps.
+
+    The stop test is an on-device mask that freezes x, r, p and gamma, so
+    the steps after it change nothing; the host reads it once every
+    `check_every` steps (None: never) only to skip those steps. The result
+    is the same either way."""
+    stop2 = CG_TOL * CG_TOL * _dot(b, b)
+    x = tuple(torch.zeros_like(t) for t in b)
+    r = b
+    p = precond(r)
+    gamma = _dot(r, p)
+    done = _dot(r, r) <= stop2
+    for k in range(iters):
+        if check_every and k and k % check_every == 0 and bool(done):
+            break
+        Ap = mv(p)
+        alpha = gamma / _dot(p, Ap)
+        x_new = tuple(xi + alpha * pi for xi, pi in zip(x, p))
+        r_new = tuple(ri - alpha * api for ri, api in zip(r, Ap))
+        z = precond(r_new)
+        gamma_new = _dot(r_new, z)
+        p_new = tuple(zi + (gamma_new / gamma) * pi for zi, pi in zip(z, p))
+        x = tuple(torch.where(done, a, c) for a, c in zip(x, x_new))
+        r = tuple(torch.where(done, a, c) for a, c in zip(r, r_new))
+        p = tuple(torch.where(done, a, c) for a, c in zip(p, p_new))
+        gamma = torch.where(done, gamma, gamma_new)
+        done = done | (_dot(r, r) <= stop2)
+    return x
+
+
+def _solve_cg(H, b, lam, iters):
+    """(H + lam diag(max(diag H, 1))) x = -b by CG with the Jacobi
+    preconditioner 1 / (max(diag H, 1e-12) (1 + lam)), as the JAX
+    package's `_solve_cg`."""
+    diag = torch.clamp(torch.diagonal(H), min=1e-12)
+    A = H + lam * torch.diag(torch.clamp(diag, min=1.0))
+    Minv = 1.0 / (diag * (1.0 + lam))
+    return pcg(lambda v: (A @ v[0],), (-b,), lambda v: (Minv * v[0],), iters)[0]
+
+
+def _solve(H, b, lam, cfg: SolveConfig):
+    return _solve_cg(H, b, lam, cfg.cg_iters) if cfg.solver == "cg" else _solve_dense(H, b, lam)
+
+
 @_f32_matmuls
 def optimize_graph(poses0, graph: GraphData, cfg: SolveConfig = SolveConfig()) -> SolveResult:
     """LM optimization; the gauge is fixed by the anchor prior or, with
     cfg.fix_first, by freezing pose 0."""
-    if cfg.solver == "cg":
-        raise NotImplementedError(_CG_REFUSED)
     K = poses0.shape[0]
     dtype, device = poses0.dtype, poses0.device
     free = torch.ones((K, 6), dtype=dtype, device=device)
@@ -238,7 +297,7 @@ def optimize_graph(poses0, graph: GraphData, cfg: SolveConfig = SolveConfig()) -
         # gauge fixing: zero rows/cols of fixed vars, unit diagonal
         H = _flatten_H(Hb) * free_flat[:, None] * free_flat[None, :] + torch.diag(1.0 - free_flat)
         b = bb.reshape(-1) * free_flat
-        delta = _solve_dense(H, b, lam) * free_flat
+        delta = _solve(H, b, lam, cfg) * free_flat
         poses_new = retract(poses, delta.reshape(K, 6))
         chi2_new = graph_chi2(poses_new, graph)
         accept = chi2_new < chi2
@@ -392,8 +451,6 @@ def optimize_graph_with_planes(poses0, planes0, graph: GraphData, plane_graph: P
     """Joint LM over SE3 poses and plane vertices (`VertexSE3` +
     `VertexPlane`, `graph_slam.cpp:88-123`) in one dense solve over the
     state [6K pose coordinates | 3M plane coordinates]."""
-    if cfg.solver == "cg":
-        raise NotImplementedError(_CG_REFUSED)
     K, M = poses0.shape[0], planes0.shape[0]
     dtype, device = poses0.dtype, poses0.device
     D = 6 * K + 3 * M
@@ -422,7 +479,7 @@ def optimize_graph_with_planes(poses0, planes0, graph: GraphData, plane_graph: P
     it, done = 0, False
     while it < cfg.max_iterations and not done:
         H, b, chi2 = lin(poses, planes)
-        delta = _solve_dense(H, b, lam) * free
+        delta = _solve(H, b, lam, cfg) * free
         poses_new = retract(poses, delta[: 6 * K].reshape(K, 6))
         planes_new = retract_plane(planes, delta[6 * K:].reshape(M, 3))
         chi2_new = full_chi2(poses_new, planes_new)

@@ -110,9 +110,9 @@ class RadarGraphSLAM:
     loops: list = field(default_factory=list)
     trans_odom2map: np.ndarray = field(default_factory=lambda: np.eye(4))
     # graph solves by solver, counted where `optimize` picks one (the joint
-    # pose + floor-plane solves apart)
+    # pose + floor-plane solves apart); "cg" counts again those that ran CG
     solver_counts: dict = field(default_factory=lambda: {
-        "dense": 0, "sparse": 0, "dense_planes": 0, "sparse_planes": 0})
+        "dense": 0, "sparse": 0, "dense_planes": 0, "sparse_planes": 0, "cg": 0})
     floor_plane: Optional[np.ndarray] = None  # optimized world floor [n, d]
     _last_gps_edge_index: int = -(10**9)
     _loop_checked_upto: int = 0
@@ -399,6 +399,7 @@ class RadarGraphSLAM:
             solve = optimize_graph_sparse if use_sparse else optimize_graph
             res = solve(poses0, graph, solve_cfg)
         self.solver_counts[kind] += 1
+        self.solver_counts["cg"] += solve_cfg.solver == "cg"
         opt = res.poses.cpu().numpy()[: len(kfs)]  # drop the padding dummies
         for k, kf in enumerate(kfs):
             kf.optimized_pose = opt[k]

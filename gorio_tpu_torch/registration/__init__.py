@@ -9,6 +9,8 @@ same code as their plain names, as in the JAX package.
 
 from __future__ import annotations
 
+from .lsq import LMConfig, LMResult, gn_optimize, lm_optimize  # noqa: F401
+
 _METHODS = {
     "FAST_GICP": ("gicp", "gicp"),
     "FAST_APDGICP": ("gicp", "apdgicp"),

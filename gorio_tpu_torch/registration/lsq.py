@@ -1,6 +1,6 @@
 """Levenberg-Marquardt SE(3) least squares.
 
-Port of `LMConfig`, `LMResult` and `lm_optimize` from
+Port of `LMConfig`, `LMResult`, `lm_optimize` and `gn_optimize` from
 `gorio_tpu/registration/lsq.py`: the adaptive-lambda LM with inner retry
 iterations and rot/trans epsilon convergence, left-multiplicative update with
 the [exp(d_rot), d_trans] delta. The JAX `lax.while_loop`s become Python
@@ -104,6 +104,22 @@ def lm_optimize(
         T=T, H=H_final, error=err,
         converged=torch.tensor(conv), iterations=torch.tensor(iters),
     )
+
+
+def gn_optimize(linearize: Callable, T0, iterations: int = 8) -> LMResult:
+    """Plain Gauss-Newton (`lsq_registration_impl.hpp:107-123`) with a fixed
+    iteration count and no host read: `iterations` linearizations, each
+    step d = -(H + 1e-9 I)^-1 b applied as se3_exp_split(d) @ T. The
+    fastest choice when the prior is good (scan-to-scan with the
+    ego-velocity motion guess)."""
+    eye6 = torch.eye(6, dtype=T0.dtype, device=T0.device)
+    T, y0, H = T0, None, None
+    for _ in range(iterations):
+        y0, H, b, _aux = linearize(T)
+        d = torch.linalg.solve_ex(H + 1e-9 * eye6, -b)[0]
+        T = lie.se3_exp_split(d) @ T
+    return LMResult(T=T, H=H, error=y0, converged=torch.tensor(True),
+                    iterations=torch.tensor(iterations))
 
 
 def _is_converged_batch(delta_T, cfg: LMConfig):

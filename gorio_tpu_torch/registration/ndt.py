@@ -17,7 +17,9 @@ stop test; the inner steps stay on the device (`torch.where` accept masks)
 and the host reads one stop flag per outer iteration. The computation runs
 in the promoted dtype of the pose and the cloud (a float64 guess on a
 float32 scan runs in float64), as the port's LM does. Plain torch: NDT is
-XLA code in the JAX package, not a Pallas kernel.
+XLA code in the JAX package, not a Pallas kernel. `ndt_align_with_map` and
+`ndt_align_multires` also align B sources along a leading axis against one
+map pair, with per-lane stop flags (the JAX package's `jax.vmap` of them).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.func
 
 from ..core import lie
 from ..core.linalg import inv3, sym_eigh3
@@ -352,6 +355,49 @@ def _solve6(A, b):
     return torch.where(info == 0, x, torch.full_like(x, float("nan")))
 
 
+def _newton_step(source, src_ls, found, mu, c6, ls, Ti, any_improved, last_norm, consts):
+    """One frozen-correspondence Newton step of `ndt_align_with_map`;
+    acceptance on the full frozen objective. Returns (T, any improved,
+    largest applied update norm, score)."""
+    d1, d2, iu, alphas, eye6, zero = consts
+    found_ls, mu_ls, c6_ls = ls
+    score_now, g, H = _derivatives(source.xyz, found, mu, c6, Ti, d1, d2, iu)
+    absH, diag = torch.abs(H), torch.diagonal(H)
+    # modified Newton: damp by a Gershgorin lower bound
+    gersh_lo = torch.amin(diag - (torch.sum(absH, dim=1) - torch.abs(diag)))
+    floor = 1e-4 * torch.clamp(torch.amax(torch.abs(diag)), min=1.0)
+    shift = torch.maximum(floor, floor - gersh_lo)
+    d = -_solve6(H + shift * eye6, g)
+    d_norm = torch.linalg.norm(d)
+    d_capped = torch.where(d_norm > 1.0, d / torch.clamp(d_norm, min=1e-12), d)
+    g_dir = -g / torch.clamp(torch.linalg.norm(g), min=1e-12)
+    cand = torch.cat([alphas[:, None] * d_capped[None], alphas[:4, None] * g_dir[None]])
+    scores_ls = _score_cached(src_ls, found_ls, mu_ls, c6_ls, d1, d2,
+                              lie.se3_exp_split(cand) @ Ti)
+    best = cand.index_select(0, torch.argmin(scores_ls).reshape(1))[0]
+    T_best = lie.se3_exp_split(best) @ Ti
+    score_best = _score_cached(source, found, mu, c6, d1, d2, T_best)
+    improved = score_best < score_now
+    # the norm of the applied update (0 when rejected) feeds the
+    # `delta_p_norm < transformation_epsilon` stop (`ndt_omp_impl.hpp:173`)
+    step_norm = torch.where(improved, torch.linalg.norm(best), zero)
+    return (torch.where(improved, T_best, Ti), any_improved | improved,
+            torch.maximum(last_norm, step_norm), torch.where(improved, score_best, score_now))
+
+
+_LS_STRIDE = 4  # step candidates are only ranked: a strided quarter suffices
+
+
+def _newton_setup(cfg, dtype, dev):
+    """The constants of `_newton_step`."""
+    d1, d2 = _gauss_coeffs(cfg)
+    # the NDT Hessian goes indefinite inside the basin: the ladder reaches
+    # down to 3e-3, the batched analogue of More-Thuente's contraction
+    alphas = torch.tensor([1.0, 0.5, 0.25, 0.1, 0.03, 0.01, 0.003], dtype=dtype, device=dev)
+    return (d1, d2, torch.tensor(_UU, device=dev), alphas,
+            torch.eye(6, dtype=dtype, device=dev), torch.zeros((), dtype=dtype, device=dev))
+
+
 def ndt_align_with_map(source: PointCloud, vmap_t: VoxelGaussianMap, init_T,
                        cfg: NDTConfig = NDTConfig()) -> LMResult:
     """Newton iterations on the NDT score with a parallel step-length search
@@ -360,65 +406,80 @@ def ndt_align_with_map(source: PointCloud, vmap_t: VoxelGaussianMap, init_T,
 
     Returns the JAX package's `LMResult` contract: `converged` is always
     true and `error` is the final (negative) score; `iterations` counts
-    outer iterations (gathers)."""
+    outer iterations (gathers). A source with a leading batch axis (xyz
+    (B, N, 3)) aligns B sources against the one map (`_align_batch`)."""
+    if source.xyz.dim() == 3:
+        return _align_batch(source, vmap_t, init_T, cfg)
     dtype = torch.promote_types(init_T.dtype, source.xyz.dtype)
     dev = init_T.device
     T = init_T.to(dtype)
-    d1, d2 = _gauss_coeffs(cfg)
-    eye6 = torch.eye(6, dtype=dtype, device=dev)
-    # the NDT Hessian goes indefinite inside the basin: the ladder reaches
-    # down to 3e-3, the batched analogue of More-Thuente's contraction
-    alphas = torch.tensor([1.0, 0.5, 0.25, 0.1, 0.03, 0.01, 0.003], dtype=dtype, device=dev)
-    ls_stride = 4  # candidates are only ranked: a strided quarter suffices
-    src_ls = PointCloud(*(x[::ls_stride] for x in source))
-    zero = torch.zeros((), dtype=dtype, device=dev)
+    consts = _newton_setup(cfg, dtype, dev)
+    src_ls = PointCloud(*(x[::_LS_STRIDE] for x in source))
     offsets = _offsets(cfg, dev)
-    iu = torch.tensor(_UU, device=dev)
-
-    def inner(found, mu, c6, ls, Ti, any_improved, last_norm):
-        """One frozen-correspondence Newton step; acceptance on the full
-        frozen objective."""
-        found_ls, mu_ls, c6_ls = ls
-        score_now, g, H = _derivatives(source.xyz, found, mu, c6, Ti, d1, d2, iu)
-        absH, diag = torch.abs(H), torch.diagonal(H)
-        # modified Newton: damp by a Gershgorin lower bound
-        gersh_lo = torch.amin(diag - (torch.sum(absH, dim=1) - torch.abs(diag)))
-        floor = 1e-4 * torch.clamp(torch.amax(torch.abs(diag)), min=1.0)
-        shift = torch.maximum(floor, floor - gersh_lo)
-        d = -_solve6(H + shift * eye6, g)
-        d_norm = torch.linalg.norm(d)
-        d_capped = torch.where(d_norm > 1.0, d / torch.clamp(d_norm, min=1e-12), d)
-        g_dir = -g / torch.clamp(torch.linalg.norm(g), min=1e-12)
-        cand = torch.cat([alphas[:, None] * d_capped[None], alphas[:4, None] * g_dir[None]])
-        scores_ls = _score_cached(src_ls, found_ls, mu_ls, c6_ls, d1, d2,
-                                  lie.se3_exp_split(cand) @ Ti)
-        best = cand.index_select(0, torch.argmin(scores_ls).reshape(1))[0]
-        T_best = lie.se3_exp_split(best) @ Ti
-        score_best = _score_cached(source, found, mu, c6, d1, d2, T_best)
-        improved = score_best < score_now
-        # the norm of the applied update (0 when rejected) feeds the
-        # `delta_p_norm < transformation_epsilon` stop (`ndt_omp_impl.hpp:173`)
-        step_norm = torch.where(improved, torch.linalg.norm(best), zero)
-        return (torch.where(improved, T_best, Ti), any_improved | improved,
-                torch.maximum(last_norm, step_norm),
-                torch.where(improved, score_best, score_now))
 
     score = ndt_score(source, vmap_t, T, cfg, offsets)
     it, done = 0, False
     while it < cfg.max_iterations and not done:
         found, mu, c6 = _gather_correspondences(source, vmap_t, T, cfg, offsets)
-        ls = (found[::ls_stride], mu[::ls_stride], tuple(c[::ls_stride] for c in c6))
-        any_imp, max_norm = torch.zeros((), dtype=torch.bool, device=dev), zero
+        ls = (found[::_LS_STRIDE], mu[::_LS_STRIDE], tuple(c[::_LS_STRIDE] for c in c6))
+        any_imp, max_norm = torch.zeros((), dtype=torch.bool, device=dev), consts[-1]
         for _ in range(3):
-            T, any_imp, max_norm, score = inner(found, mu, c6, ls, T, any_imp, max_norm)
+            T, any_imp, max_norm, score = _newton_step(source, src_ls, found, mu, c6, ls, T,
+                                                       any_imp, max_norm, consts)
         # stop when no inner step improved, or every applied update of the
         # block fell below transformation_epsilon (`ndt_omp_impl.hpp:159`)
         done = bool((~any_imp) | (max_norm < cfg.transformation_epsilon))
         it += 1
     found, mu, c6 = _gather_correspondences(source, vmap_t, T, cfg, offsets)
-    _, _, H = _derivatives(source.xyz, found, mu, c6, T, d1, d2, iu)
+    _, _, H = _derivatives(source.xyz, found, mu, c6, T, consts[0], consts[1], consts[2])
     return LMResult(T=T, H=H, error=score, converged=torch.tensor(True),
                     iterations=torch.tensor(it))
+
+
+def _align_batch(source: PointCloud, vmap_t: VoxelGaussianMap, init_T,
+                 cfg: NDTConfig) -> LMResult:
+    """`ndt_align_with_map` of B sources (B, N, ...) against one map, the
+    counterpart of a `jax.vmap`ped align: init_T (B, 4, 4) or one pose for
+    all. Each lane keeps its own stop flag and iteration count and a lane
+    that has stopped keeps its state, as the lanes of a vmapped
+    `lax.while_loop` do; the per-lane work runs batched (`torch.func.vmap`
+    of the single align's steps). The host reads one flag per outer
+    iteration for the whole batch. Returns an LMResult with per-lane
+    fields (iterations on the CPU)."""
+    B = source.xyz.shape[0]
+    dtype = torch.promote_types(init_T.dtype, source.xyz.dtype)
+    dev = init_T.device
+    T = init_T.to(dtype).expand(B, 4, 4)
+    consts = _newton_setup(cfg, dtype, dev)
+    d1, d2, iu = consts[:3]
+    offsets = _offsets(cfg, dev)
+    src_ls = PointCloud(*(x[:, ::_LS_STRIDE] for x in source))
+    gather = torch.func.vmap(lambda s, Ti: _gather_correspondences(s, vmap_t, Ti, cfg, offsets))
+    step = torch.func.vmap(lambda *a: _newton_step(*a, consts))
+
+    score = torch.func.vmap(lambda s, Ti: ndt_score(s, vmap_t, Ti, cfg, offsets))(source, T)
+    iters = torch.zeros(B, dtype=torch.int64, device=dev)
+    running = torch.ones(B, dtype=torch.bool, device=dev)
+    outer, any_running = 0, B > 0
+    while outer < cfg.max_iterations and any_running:
+        found, mu, c6 = gather(source, T)
+        ls = (found[:, ::_LS_STRIDE], mu[:, ::_LS_STRIDE], tuple(c[:, ::_LS_STRIDE] for c in c6))
+        T_new, score_new = T, score
+        any_imp = torch.zeros(B, dtype=torch.bool, device=dev)
+        max_norm = torch.zeros(B, dtype=dtype, device=dev)
+        for _ in range(3):
+            T_new, any_imp, max_norm, score_new = step(source, src_ls, found, mu, c6, ls, T_new,
+                                                       any_imp, max_norm)
+        T = torch.where(running[:, None, None], T_new, T)
+        score = torch.where(running, score_new, score)
+        iters = iters + running.to(iters.dtype)
+        running = running & any_imp & (max_norm >= cfg.transformation_epsilon)
+        any_running = bool(running.any())
+        outer += 1
+    found, mu, c6 = gather(source, T)
+    H = torch.func.vmap(lambda *a: _derivatives(*a, d1, d2, iu)[2])(source.xyz, found, mu, c6, T)
+    return LMResult(T=T, H=H, error=score, converged=torch.ones(B, dtype=torch.bool),
+                    iterations=iters.cpu())
 
 
 def ndt_align(source: PointCloud, target: PointCloud, init_T=None,

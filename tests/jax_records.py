@@ -5,6 +5,8 @@ package's own run on the same input:
   python tests/jax_records.py scan-to-map SEQ   # scan-to-submap odometry
   python tests/jax_records.py align DIR         # the align pair, 8 methods
   python tests/jax_records.py slice-map SEQ OUT    # `slam --map` of the slice
+  python tests/jax_records.py cg-slice SEQ OUT     # `slam --config` with solver "cg"
+  python tests/jax_records.py preint-chunked       # chunked against one window
   python tests/jax_records.py candidates {jax,torch} SEQ OUT.json
   python tests/jax_records.py candidates-diff JAX.json TORCH.json
   python tests/jax_records.py verify-pairs SEQ TUM NEW:OLD [NEW:OLD ...]
@@ -27,6 +29,17 @@ each method's error against the known transform.
 `slice-map` runs the JAX CLI's default `slam` (loops on) on SEQ with
 `--map OUT/map.npz --output OUT/est.tum` and prints the map's point count
 and bounds (the 0.2 m voxel map of the keyframe clouds within 50 m).
+
+`cg-slice` writes the JAX CLI's `dump-config` tree to OUT/config.json with
+`slam.solve.solver` set to "cg", runs `slam --config` with it on SEQ (the
+98-frame slice) writing OUT/est.tum, and prints the keyframe count and
+`evaluate`'s ATE and RTE.
+
+`preint-chunked` runs `preintegrate` over the 4 s window of the JAX test
+`test_chunked_preintegration_matches_single` (noiseless streams, start
+0.5 s, queries 1.1, 2.3 and 3.4 s, grid 1024), one window and
+`quantum=1.0`, with LPM and with UGPM, and prints the largest rotation and
+position gap between the two.
 
 `candidates` runs one package's `slam --optimize-every 15` on a sequence
 (the circuit: `simulate --duration 75 --rate 5 --seed 22 --circuit --laps
@@ -165,6 +178,62 @@ def slice_map(seq, out):
     xyz = np.load(out / "map.npz")["xyz"]
     print(json.dumps({"points": len(xyz), "min": xyz.min(axis=0).tolist(),
                       "max": xyz.max(axis=0).tolist()}))
+
+
+def cg_slice(seq, out):
+    import jax
+
+    import gorio_tpu.cli as cli
+    import gorio_tpu.pipeline.slam as slam_mod
+    from gorio_tpu.io.tum import ate_rmse, load_tum, rte
+
+    assert jax.config.jax_enable_x64, "run with JAX_ENABLE_X64=1"
+    out = Path(out)
+    out.mkdir(parents=True, exist_ok=True)
+    cli.main(["dump-config", "--output", str(out / "config.json")])
+    tree = json.loads((out / "config.json").read_text())
+    tree["slam"]["solve"]["solver"] = "cg"
+    (out / "config.json").write_text(json.dumps(tree, indent=2))
+    made = []
+
+    class Caught(slam_mod.RadarGraphSLAM):
+        def __post_init__(self):
+            super().__post_init__()
+            made.append(self)
+
+    slam_mod.RadarGraphSLAM = Caught
+    t0 = time.perf_counter()
+    cli.main(["slam", "--dataset", str(seq), "--output", str(out / "est.tum"), "--config",
+              str(out / "config.json")])
+    wall = time.perf_counter() - t0
+    es, ep = load_tum(out / "est.tum")
+    gs, gp = load_tum(Path(seq) / "groundtruth.tum")
+    print(json.dumps({"keyframes": len(made[0].keyframes), "loops": len(made[0].loops),
+                      "ate_m": ate_rmse(es, ep, gs, gp), "rte_m": rte(es, ep, gs, gp),
+                      "wall_s": wall}))
+
+
+def preint_chunked():
+    import jax
+    import jax.numpy as jnp
+
+    from gorio_tpu.core import lie
+    from gorio_tpu.io.synthetic import sample_imu, simulate_trajectory
+    from gorio_tpu.preintegration import preintegrate
+
+    assert jax.config.jax_enable_x64, "run with JAX_ENABLE_X64=1"
+    traj = simulate_trajectory(seed=12, duration=4.0)
+    imu = sample_imu(traj, gyr_rate=200.0, vel_rate=20.0, gyr_std=0.0, vel_std=0.0, seed=13)
+    args = [jnp.asarray(a) for a in (imu.gyr_t, imu.gyr, imu.vel_t, imu.vel)]
+    q = jnp.asarray([1.1, 2.3, 3.4])
+    for method in ("lpm", "ugpm"):
+        single, chunked = (preintegrate(*args, 0.5, q, 1e-6, 1e-6, method=method,
+                                        quantum=quantum, grid_n=1024)
+                           for quantum in (-1.0, 1.0))
+        rad = max(float(lie.rotation_geodesic_angle(single.delta_R[i], chunked.delta_R[i]))
+                  for i in range(3))
+        m = float(jnp.abs(single.delta_p - chunked.delta_p).max())
+        print(json.dumps({"method": method, "rad": rad, "m": m}), flush=True)
 
 
 def candidates(pkg, seq, out):
@@ -443,6 +512,9 @@ if __name__ == "__main__":
         posterior(*sys.argv[2:4])
     elif sys.argv[1] == "smoother":
         smoother(*sys.argv[2:5])
+    elif sys.argv[1] == "preint-chunked":
+        preint_chunked()
     else:
-        {"scan-to-map": scan_to_map, "align": align, "slice-map": slice_map}[sys.argv[1]](
+        {"scan-to-map": scan_to_map, "align": align, "slice-map": slice_map,
+         "cg-slice": cg_slice}[sys.argv[1]](
             *sys.argv[2:])

@@ -83,6 +83,26 @@ def test_gicp_align_matches_jax(pair, mode):
 
 
 @pytest.mark.parametrize("mode", ["apdgicp", "gicp"])
+def test_gn_optimize_matches_jax(pair, mode):
+    """Plain Gauss-Newton, 8 fixed iterations on the GICP callbacks (the
+    plain 1-NN on the CPU): T within 1e-9, the last linearization's H and
+    cost within 1e-8 relative."""
+    from gorio_tpu.registration.lsq import gn_optimize as j_gn
+    from gorio_tpu_torch.registration import gn_optimize as t_gn
+
+    src, tgt, tsrc, ttgt, T = pair
+    jcfg, tcfg = _cfgs(mode)
+    j_lin, _ = jg.make_gicp_callbacks(jg.prepare_gicp(src, tgt, jcfg), jcfg)
+    t_lin, _ = tg.make_gicp_callbacks(tg.prepare_gicp(tsrc, ttgt, tcfg), tcfg)
+    jr = jax.jit(lambda T0: j_gn(j_lin, T0, iterations=8))(jnp.asarray(T))
+    tr = t_gn(t_lin, torch.as_tensor(T), iterations=8)
+    np.testing.assert_allclose(tr.T.numpy(), np.asarray(jr.T), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(tr.H.numpy(), np.asarray(jr.H), rtol=1e-8, atol=1e-6)
+    np.testing.assert_allclose(float(tr.error), float(jr.error), rtol=1e-8)
+    assert int(tr.iterations) == 8 and bool(tr.converged)
+
+
+@pytest.mark.parametrize("mode", ["apdgicp", "gicp"])
 def test_component_linearize_matches_reference(pair, mode):
     """`test_registration.py::test_component_linearize_matches_reference`
     on the port: the component form (kernel payload select) equals the

@@ -87,7 +87,13 @@ def test_optimize_graph_matches_jax_and_oracle(seed, robust):
 
 
 def test_unported_solvers_raise():
+    """`solver="cg"` is no longer refused: the Jacobi-preconditioned CG
+    runs and matches the JAX package's (`tests/test_torch_cg.py` has the
+    wider checks)."""
     _, _, _, poses0, graph = _frozen(0, False)
-    with pytest.raises(NotImplementedError, match="A7-sparse"):
-        ts.optimize_graph(torch.as_tensor(np.asarray(poses0)), graph_from_numpy(graph),
-                          ts.SolveConfig(solver="cg"))
+    jcfg = JSolveConfig(max_iterations=100, solver="cg", cg_iters=10)
+    jr = j_optimize(poses0, graph, jcfg)
+    tr = ts.optimize_graph(torch.as_tensor(np.asarray(poses0)), graph_from_numpy(graph),
+                           config_from_dict(ts.SolveConfig, jcfg._asdict()))
+    assert int(tr.iterations) == int(jr.iterations)
+    np.testing.assert_allclose(tr.poses.numpy(), np.asarray(jr.poses), atol=1e-9)

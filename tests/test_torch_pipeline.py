@@ -107,24 +107,30 @@ def test_slam_backend_matches_jax(frames):
 
 
 def test_unported_slam_modes_raise(frames):
-    """UGPM and the floor constraint run now (`test_torch_frontend.py`); the
-    joint pose + floor-plane solve still refuses `solver="cg"` (ROADMAP
-    A7-sparse-cg) when the back end reaches it, and an unknown
-    preintegration mode is refused up front."""
+    """UGPM and the floor constraint run now (`test_torch_frontend.py`), and
+    so does `solver="cg"`: the joint pose + floor-plane solve that the back
+    end reaches runs CG (counted under "cg") and, on this 4-pose graph
+    (27 coordinates, fewer than its 100 CG steps), ends at the dense
+    solve's poses. An unknown preintegration mode is refused up front."""
     from gorio_tpu_torch.graph.solver import SolveConfig
 
     with pytest.raises(ValueError, match="preint_mode"):
         ts.RadarGraphSLAM(ts.SLAMConfig(preint_mode="imu"), device="cpu")
-    slam = ts.RadarGraphSLAM(ts.SLAMConfig(
-        enable_loop_closure=False, enable_preintegration=False, enable_floor_constraint=True,
-        keyframe_delta_trans=0.0, solve=SolveConfig(solver="cg")), device="cpu")
-    for stamp, cloud, _, _, p in frames[0][:3]:
-        pose = np.eye(4)
-        pose[:3, 3] = p
-        slam.add_frame(stamp, cloud_from_numpy(cloud), pose,
-                       floor_coeffs=np.array([0.0, 0.0, 1.0, 1.8]))
-    with pytest.raises(NotImplementedError, match="A7-sparse-cg"):
-        slam.optimize()
+    out = {}
+    for solver in ("cg", "dense"):
+        slam = ts.RadarGraphSLAM(ts.SLAMConfig(
+            enable_loop_closure=False, enable_preintegration=False,
+            enable_floor_constraint=True, keyframe_delta_trans=0.0,
+            solve=SolveConfig(solver=solver)), device="cpu")
+        for stamp, cloud, _, _, p in frames[0][:3]:
+            pose = np.eye(4)
+            pose[:3, 3] = p
+            slam.add_frame(stamp, cloud_from_numpy(cloud), pose,
+                           floor_coeffs=np.array([0.0, 0.0, 1.0, 1.8]))
+        out[solver] = slam.optimize()
+        assert slam.solver_counts["dense_planes"] == 1
+        assert slam.solver_counts["cg"] == (solver == "cg")
+    np.testing.assert_allclose(out["cg"], out["dense"], rtol=0, atol=1e-6)
 
 
 def test_slam_defaults_to_the_card():

@@ -275,7 +275,15 @@ def test_sparse_plane_solve_equals_dense(fix_first):
 
 @pytest.mark.parametrize("which", ["dense", "sparse"])
 def test_plane_solvers_refuse_cg(which):
-    _, (tposes, tgd, tplanes, tpg) = _frozen(8, 5, all_families=False)
-    fn = tsv.optimize_graph_with_planes if which == "dense" else tsp.optimize_graph_with_planes_sparse
-    with pytest.raises(NotImplementedError, match="A7-sparse-cg"):
-        fn(tposes, tplanes, tgd, tpg, tsv.SolveConfig(solver="cg"))
+    """`solver="cg"` is no longer refused: both joint solvers run CG and
+    match the JAX package's (`cg_iters=10`, where every dense CG solve stops
+    at the cap; `tests/test_torch_cg.py` has the wider checks)."""
+    (jposes, jgd, jplanes, jpg), (tposes, tgd, tplanes, tpg) = _frozen(8, 5, all_families=False)
+    jcfg = jsv.SolveConfig(max_iterations=15, solver="cg", cg_iters=10)
+    jfn, tfn = ((jsv.optimize_graph_with_planes, tsv.optimize_graph_with_planes)
+                if which == "dense" else
+                (jsp.optimize_graph_with_planes_sparse, tsp.optimize_graph_with_planes_sparse))
+    j = jfn(jnp.asarray(jposes), jnp.asarray(jplanes), jax.tree.map(jnp.asarray, jgd),
+            jax.tree.map(jnp.asarray, jpg), jcfg)
+    t = tfn(tposes, tplanes, tgd, tpg, config_from_dict(tsv.SolveConfig, jcfg._asdict()))
+    _check_solve(t, j)

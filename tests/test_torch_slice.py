@@ -231,8 +231,9 @@ def test_port_runs_without_jax(runs, full_runs, tmp_path):
     gorio_tpu` (and every submodule) fail runs the port's whole slice, loop
     closure on: simulate, slam (the default path, the paper's four flags
     with `--config` of `dump-config`'s tree, `--dump` and `--map`, and
-    `--registration ndt`), stream, evaluate, align, `sample_posterior` and
-    the loop smoother — with the same results as this process (with loops off: the 4 s sequence never passes the 50 m
+    `--registration ndt`), stream, evaluate, align, `sample_posterior`,
+    the loop smoother and CG solves (and imports `preintegrate` and
+    `gn_optimize`) — with the same results as this process (with loops off: the 4 s sequence never passes the 50 m
     gate; the config tree's defaults are the flags').
     (An import hook blocks them: a `sys.modules['jax'] = None` entry trips
     scipy's array-API helper, which looks the module up by name.)"""
@@ -266,6 +267,11 @@ def test_port_runs_without_jax(runs, full_runs, tmp_path):
         "res = smoother.smc_loop_relaxation(None, p0, gd, m, n_particles=16, n_stages=2,"
         " n_moves=1)(torch.Generator().manual_seed(0))\n"
         "assert np.isfinite(float(res.log_evidence)) and smoother.loop_evidence_gate(res)\n"
+        "from gorio_tpu_torch.graph import solver as gs, sparse as gsp\n"
+        "for fn in (gs.optimize_graph, gsp.optimize_graph_sparse):\n"
+        "    assert np.isfinite(fn(p0, gd, gs.SolveConfig(solver='cg')).poses.numpy()).all()\n"
+        "from gorio_tpu_torch.preintegration import combine_preints, preintegrate\n"
+        "from gorio_tpu_torch.registration import gn_optimize\n"
         "main(['dump-config', '--output', 'c.json'])\n"
         f"main(['slam', '--dataset', 'seq', '--output', {str(tmp_path / 'f.tum')!r},"
         f" '--capacity', '512', '--device', 'cpu', *{FULL!r}, '--config', 'c.json',"

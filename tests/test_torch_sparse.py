@@ -174,10 +174,12 @@ def test_loop_slots_follow_nonzero(n_edges, cap):
 
 
 def test_unported_sparse_options_raise():
-    _, _, tp, tg = _graph(16, 1, seed=0)
-    with pytest.raises(NotImplementedError, match="A7-sparse-cg"):
-        ts.optimize_graph_sparse(tp, tg, tsol.SolveConfig(solver="cg"))
-    # the joint pose + plane solver runs (`test_torch_planes.py`); its CG
-    # branch is refused the same way
-    with pytest.raises(NotImplementedError, match="A7-sparse-cg"):
-        ts.optimize_graph_with_planes_sparse(tp, None, tg, None, tsol.SolveConfig(solver="cg"))
+    """`solver="cg"` is no longer refused: the block-preconditioned CG runs
+    and matches the JAX package's (`tests/test_torch_cg.py` has the wider
+    checks)."""
+    poses0, graph, tp, tg = _graph(16, 1, seed=0)
+    jcfg = JSolveConfig(max_iterations=40, solver="cg")
+    want = jax.jit(js.optimize_graph_sparse, static_argnames="cfg")(poses0, graph, cfg=jcfg)
+    got = ts.optimize_graph_sparse(tp, tg, tsol.SolveConfig(**jcfg._asdict()))
+    assert int(got.iterations) == int(want.iterations)
+    np.testing.assert_allclose(got.poses.numpy(), np.asarray(want.poses), rtol=0, atol=1e-9)
