@@ -230,10 +230,60 @@ Phases, one line each (more for the tables):
                JtJ that a 1e-15 move of the input shifts by ~5e-5).
                The launch counts of the cg-slice and of gn are paths of the
                kernels' line.
+  14. bag    — the 98-frame slice written as an NTU4DRadLM-style rosbag by
+               `tests/tool_inputs.py` in a child process started once the
+               slice is simulated (the fire drill's independent writer:
+               chunks alternating bz2 / greedy LZ4 / none; the frames in the
+               radar frame, intensity as the power channel, the gyro, the
+               twist stream and one NavSatFix per second made from the
+               ground truth; every stamp shifted by 1.6e9 s). `convert-bag
+               --list-topics` must count 98 radar messages and every IMU,
+               twist and GPS message; `convert-bag` (timed: pure-Python LZ4
+               and bz2) must write 98 frames with the slice's point counts
+               net of the points whose power is not above 0, doppler and
+               intensity to the bit, points within two float32 roundings
+               (2^-22 of their range), stamps within 1e-6 s of the shifted
+               ones, and `gps.npz`. Then `slam --fused --preprocess --preint
+               ugpm --optimize-every 15` (loops on) with `--config` of
+               `dump-config`'s tree with the GPS drift gate at 0 (the
+               reference's 5 m gate passes no fix on this run), and
+               `evaluate` against the shifted ground truth: fails unless the
+               launch identity holds, the keyframe stamps are >= 1.6e9 s, the
+               GPS edges equal and the keyframes lie within 2% of the JAX
+               package's CPU f64 record of the same bag (`BAG_JAX`), and the
+               ATE is <= 1.25 x its + 0.02 m; prints the fixes passing each
+               GPS gate and the ATE beside the slice's and the full-slice's.
+  15. tools  — `gt-adjust --device cuda` on the circuit's ground truth at
+               every 60th pose (1,251 poses, 7,506 dense dimensions) with
+               `tests/test_cli_tools.py`'s per-step drift and up to 16
+               identity loops one lap apart: fails unless chi2 (1e-9
+               relative), the iterations and 11 sampled poses (1e-6 m)
+               equal the JAX CPU f64 record (`GT_ADJUST_JAX`); prints ms per
+               LM iteration, the peak memory and the end and loop gaps
+               before and after. `utm-align --device cuda` on the bag's
+               ground truth and its fixes as UTM rows: `n_pairs` equal and
+               T_world_utm within 1e-6 m / 1e-7 rad of `UTM_ALIGN_JAX`.
+               `align-traj --scale` of the drifted circuit onto its truth:
+               the record's JSON within 1e-12 (bit equality printed). None
+               launches a kernel. Then both kernels against the exact
+               kd-tree (`io/native.NativeKDTree`, float32) at the main
+               path's call and the align pair's: d2 within 1e-5 relative,
+               indices equal except where the two refs' d2 tie within 1e-6
+               relative (counted). `visualize` needs matplotlib, which the
+               card's machine lacks: the CPU tests hold it.
 The two sequences are simulated in child processes started at the beginning,
-beside the build and the kernel phase. Then the kernels' JSON line, the card
-line, and the last line `{"ok": true, "device": {...}}`. Any failure exits
-non-zero with no result.
+beside the build and the kernel phase. Once the kernel phase has taken its
+times alone on the card, two lanes start, each a child process of this
+script (`--lane NAME`) that waits for the circuit's simulation: `circuit`
+runs phase 5, the circuit's part of phase 12 (its `sample_posterior`, the
+smoother, `smc_loop_relaxation` on the card against the CPU) and CG on its
+graph (phase 13); `full-circuit` runs phase 7 and CG on its graph. The
+other phases run here meanwhile; the host threads and the card are shared,
+so each phase's wall clock includes the others' load. A lane's output is
+printed when it ends, and its failure fails the script. Each phase prints
+a `[time]` line: its seconds and when it ended since the start. Then the
+kernels' JSON line, the card line, and the last line `{"ok": true,
+"device": {...}}`. Any failure exits non-zero with no result.
 
 """
 
@@ -245,6 +295,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -338,6 +389,48 @@ SLICE_MAP_JAX = {"points": 6639, "min": [2.7560989087806274, -37.01992436277447,
                  "max": [74.07914565383835, 45.219184813470044, 11.709315422946588]}
 MAP_POINTS_TOL, MAP_BOUNDS_M = 0.02, 0.05
 STREAM_OPTIMIZE_EVERY = 15
+# The JAX package's CPU f64 records of the bag and tools phases
+# (`tests/jax_records.py bag | utm-align | gt-adjust`, JAX_ENABLE_X64=1, on
+# `tests/tool_inputs.py`'s inputs): the bag's `slam` (its reader's frames as
+# float64), `utm-align` on the bag's ground truth and fixes, `gt-adjust`
+# (11 sampled positions) and `align-traj --scale` on the drifted circuit
+T_BASE = 1.6e9
+BAG_JAX = {"keyframes": 80, "loops": [], "gps_edges": 7, "gps_utm_coords": 7,
+           "gps_near_keyframes": 18, "ate_m": 0.014386889696969793, "rte_m": 0.023770986984932466,
+           "first_stamp": 1600000000.2}
+UTM_ALIGN_JAX = {"n_pairs": 20, "chi2": 3.7409127024735596e-17, "T_world_utm": [
+    [0.9977239746077069, -0.0631993283996441, -0.023509899677224482, -343020.19801880815],
+    [0.0642454518834734, 0.9968370727632424, 0.046780041439677046, -171093.26414074103],
+    [0.020479072373706855, -0.0481839730060064, 0.9986285156854219, -90.70399990987724],
+    [0.0, 0.0, 0.0, 1.0],
+]}
+GT_ADJUST_JAX = {
+    "loops": ["9:636", "14:640", "122:743", "127:750", "132:759", "249:870", "254:874",
+              "260:880", "269:896", "324:943", "402:1025", "557:1178", "594:1223", "599:1225",
+              "604:1227", "609:1230"],
+    "iterations": 4, "chi2": 0.10093375348107755, "loop_gap_after_m": 0.025296614356449657,
+    "sampled": {
+        "0": [0.02212386762945088, -0.18315072394319595, -0.08242133675876345],
+        "125": [13.08514610725738, 6.853367098807239, -0.2833730550929713],
+        "250": [8.67665340045881, 20.645488236028303, -0.22664012316265406],
+        "375": [-5.699621996704798, 22.23437694844212, 0.06369058435160665],
+        "500": [-10.888244749710696, 8.061640516094894, 0.1423655048193787],
+        "625": [-0.3224391411714936, -0.1724509512626208, -0.12749318580876728],
+        "750": [13.187475459750813, 7.119766482837568, -0.29977255329787555],
+        "875": [8.129995103559187, 21.06379377150918, -0.22369431786675123],
+        "1000": [-5.340026543897655, 22.733636248032724, 0.16326429276253274],
+        "1125": [-10.72982839041556, 8.564387694181839, 0.26441535565077423],
+        "1250": [0.09916138234583793, -0.22169958042932397, 0.05356155985176367],
+    }}
+ALIGN_TRAJ_JAX = {"scale": 0.9671300314231808, "T": [
+    [0.9666314350461801, 0.031051025971767766, 1.5724659709737915e-05, 0.0018350938080611279],
+    [-0.031051029555370414, 0.9666312202926578, 0.0006443599003796232, 0.01099210855782573],
+    [4.97150211629863e-06, -0.0006445325672973395, 0.9671298166397605, -0.0014634346590495298],
+    [0.0, 0.0, 0.0, 1.0],
+]}
+BAG_KEYFRAME_TOL, GT_CHI2_RTOL, GT_POSE_M = 0.02, 1e-9, 1e-6
+UTM_M, UTM_RAD, ALIGN_TRAJ_RTOL = 1e-6, 1e-7, 1e-12
+KDTREE_D2_RTOL, KDTREE_TIE = 1e-5, 1e-6
 CARD = ""  # the card's `nvidia-smi` name and power limit, set by main()
 
 
@@ -559,7 +652,7 @@ def kernel_phase(K):
     stats_a = {name: timing_row(name, fns[name], q, r, m, p, ALIGN, launches=3, warmup=1)
                for name in fns}
     return errs, stats, {"verify_batch": (stats_b, VERIFY), "submap": (stats_s, SUBMAP),
-                         "align": (stats_a, ALIGN)}, S_main
+                         "align": (stats_a, ALIGN)}, S_main, cases
 
 
 def align_inputs(g):
@@ -1011,9 +1104,9 @@ def floor_gap(floor, rec):
 
 
 def full_slice_phase(K, seq, tmp):
-    _, _, launches, _, last = full_phase(K, seq, tmp, "full-slice", [], FULL_SLICE_JAX, ATE_MAX,
-                                         "dense_planes")
-    return launches, last
+    _, result, launches, _, last = full_phase(K, seq, tmp, "full-slice", [], FULL_SLICE_JAX,
+                                              ATE_MAX, "dense_planes")
+    return launches, last, result["ate_rmse_m"]
 
 
 def full_circuit_phase(K, seq, tmp):
@@ -1734,20 +1827,18 @@ def smoother_phase(slam, seq):
     return poses0, variants["the JAX test's bogus loop in place of the first"], mask
 
 
-def card_equals_cpu(inputs, smoother_inputs):
-    """`run_hmc` (2 chains x 20 draws on the slice's whitened posterior) and
-    `smc_loop_relaxation` (256 particles, 2 stages on the circuit with the
-    JAX test's bogus loop, where it resamples) on the card and on the CPU
-    from the same inputs and the same draws, made on the CPU from a seeded
-    generator: equal within 1e-8."""
+def _graph_on(dev, graph):
+    return type(graph)(*(type(f)(*(t.to(dev) for t in f)) for f in graph))
+
+
+def hmc_card_equals_cpu(inputs):
+    """`run_hmc` (2 chains x 20 draws on the slice's whitened posterior) on
+    the card and on the CPU from the same inputs and the same draws, made on
+    the CPU from a seeded generator: equal within 1e-8."""
     import torch
 
     from gorio_tpu_torch.inference.hmc import run_hmc
     from gorio_tpu_torch.inference.laplace import graph_logprob, whitened_logprob
-    from gorio_tpu_torch.inference.smoother import smc_loop_relaxation
-
-    def on(dev, graph):
-        return type(graph)(*(type(f)(*(t.to(dev) for t in f)) for f in graph))
 
     gen = torch.Generator().manual_seed(0)
     D = inputs["D"]
@@ -1757,11 +1848,30 @@ def card_equals_cpu(inputs, smoother_inputs):
     runs = []
     for dev in ("cuda", "cpu"):
         lp_y, _ = whitened_logprob(graph_logprob(inputs["poses"].to(dev),
-                                                 on(dev, inputs["graph"])), inputs["H"].to(dev))
+                                                 _graph_on(dev, inputs["graph"])),
+                                   inputs["H"].to(dev))
         runs.append(run_hmc(lp_y, torch.zeros((2, D), dtype=torch.float64, device=dev),
                             n_samples=n, step_size=0.15, n_leapfrog=POSTERIOR_LEAPFROG,
                             draws=tuple(d.to(dev) for d in draws)))
     hmc_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(*runs))
+    print(f"[posterior] card = CPU on the same draws: run_hmc (2 chains x {n} draws, {D} dofs) "
+          f"max |diff| {hmc_err:.3e} (limit {CARD_CPU_TOL})", flush=True)
+    if not hmc_err <= CARD_CPU_TOL:
+        fail(f"posterior: the card's run_hmc differs from the CPU's on the same draws "
+             f"({hmc_err:.3e})")
+
+
+def smc_card_equals_cpu(smoother_inputs):
+    """`smc_loop_relaxation` (256 particles, 2 stages on the circuit with the
+    JAX test's bogus loop, where it resamples) on the card and on the CPU
+    from the same inputs and the same draws, made on the CPU from a seeded
+    generator: equal within 1e-8 relative to each field's largest value, and
+    resampled at the same stages, at least one."""
+    import torch
+
+    from gorio_tpu_torch.inference.smoother import smc_loop_relaxation
+
+    gen = torch.Generator().manual_seed(0)
     poses0, graph, mask = smoother_inputs
     N, S2, D2 = CARD_CPU_PARTICLES, CARD_CPU_STAGES, poses0.shape[0] * 6
     sdraws = (torch.randn((N, D2), generator=gen, dtype=torch.float64),
@@ -1770,34 +1880,46 @@ def card_equals_cpu(inputs, smoother_inputs):
               torch.log(torch.rand((S2, 1, N), generator=gen, dtype=torch.float64)))
     res = []
     for dev in ("cuda", "cpu"):
-        run = smc_loop_relaxation(None, poses0.to(dev), on(dev, graph), mask, n_particles=N,
-                                  n_stages=S2, n_moves=1)
+        run = smc_loop_relaxation(None, poses0.to(dev), _graph_on(dev, graph), mask,
+                                  n_particles=N, n_stages=S2, n_moves=1)
         res.append(run(draws=tuple(d.to(dev) for d in sdraws)))
     smc_err = max(float((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1.0))
                   for a, b in zip(*res))
     rs = resampled(res[0], N), resampled(res[1], N)
-    print(f"[posterior] card = CPU on the same draws: run_hmc (2 chains x {n} draws, {D} dofs) "
-          f"max |diff| {hmc_err:.3e}, smc_loop_relaxation ({N} particles, {S2} stages, "
-          f"{poses0.shape[0]} poses, the JAX test's bogus loop; resampled at stages {rs[0]} on "
-          f"the card, {rs[1]} on the CPU) max |diff| relative to each field's largest "
-          f"{smc_err:.3e} (limit {CARD_CPU_TOL})", flush=True)
-    if not (hmc_err <= CARD_CPU_TOL and smc_err <= CARD_CPU_TOL):
-        fail(f"posterior: the card's run differs from the CPU's on the same draws "
-             f"(run_hmc {hmc_err:.3e}, smc_loop_relaxation {smc_err:.3e})")
+    print(f"[posterior] card = CPU on the same draws: smc_loop_relaxation ({N} particles, {S2} "
+          f"stages, {poses0.shape[0]} poses, the JAX test's bogus loop; resampled at stages "
+          f"{rs[0]} on the card, {rs[1]} on the CPU) max |diff| relative to each field's "
+          f"largest {smc_err:.3e} (limit {CARD_CPU_TOL})", flush=True)
+    if not smc_err <= CARD_CPU_TOL:
+        fail(f"posterior: the card's smc_loop_relaxation differs from the CPU's on the same "
+             f"draws ({smc_err:.3e})")
     if not rs[0] or rs[0] != rs[1]:
         fail(f"posterior: smc_loop_relaxation resampled at stages {rs[0]} on the card and "
              f"{rs[1]} on the CPU: the comparison must cover a resample")
 
 
-def posterior_phase(K, slice_slam, circuit_slam, circuit_seq):
-    """Posterior inference on the slice's and the circuit's SLAM: the
-    `sample_posterior` runs (their launch counts are the path's), bench.py's
-    HMC passes, the smoother, and the card against the CPU."""
+def posterior_phase(K, slice_slam):
+    """Posterior inference on the slice's SLAM: the two `sample_posterior`
+    runs (their launch counts are part of the path's), bench.py's HMC
+    passes, and `run_hmc` on the card against the CPU."""
     t0 = time.perf_counter()
     K.reset_launch_counts()
     first = posterior_run("slice-posterior", slice_slam)
     posterior_run(f"slice-posterior window={POSTERIOR_WINDOW}", slice_slam,
                   window=POSTERIOR_WINDOW)
+    launches = dict(K.launch_counts)
+    bench_posterior()
+    hmc_card_equals_cpu(first["inputs"])
+    print(f"[posterior] {CARD}: the phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def circuit_posterior_phase(K, circuit_slam, circuit_seq):
+    """Posterior inference on the circuit's SLAM: `sample_posterior` (its
+    launch count is the rest of the path's), the smoother, and
+    `smc_loop_relaxation` on the card against the CPU."""
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
     rec = posterior_run("circuit-posterior", circuit_slam, profile_density=True)
     launches = dict(K.launch_counts)
     print(f"[circuit-posterior] the JAX package's CPU f64 record on its own run's keyframes "
@@ -1805,9 +1927,9 @@ def posterior_phase(K, slice_slam, circuit_slam, circuit_seq):
           f"{rec['rhat_max']:.4f}, Laplace std of the last pose "
           f"{rec['laplace_std_last_pose']:.6f} (Monte Carlo quantities: printed, not held); "
           f"launches {launches}", flush=True)
-    bench_posterior()
-    card_equals_cpu(first["inputs"], smoother_phase(circuit_slam, circuit_seq))
-    print(f"[posterior] {CARD}: the phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    smc_card_equals_cpu(smoother_phase(circuit_slam, circuit_seq))
+    print(f"[circuit-posterior] {CARD}: the phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return launches
 
 
@@ -1927,47 +2049,51 @@ def _pose_gap(a, b):
             float((a[:, :3, :3] - b[:, :3, :3]).abs().max()))
 
 
-def cg_graphs_phase(graphs):
-    """CG against the direct (or dense) solve on graphs the slam runs built:
-    the circuit's final pose graph, the full-circuit's first floor graph at
+def cg_graph_phase(what, graph_cfg):
+    """CG against the direct solve on a graph a slam run built: the
+    circuit's final pose graph, or the full-circuit's first floor graph at
     512 padded poses (its final one starts at its own optimum: 360
     keyframes are 24 x 15, so the last `--optimize-every` cycle has solved
-    it already and every LM step is rejected), and the full-slice's floor
-    graph."""
+    it already and every LM step is rejected)."""
     import torch
 
-    from gorio_tpu_torch.graph.solver import optimize_graph_with_planes
     from gorio_tpu_torch.graph.sparse import (optimize_graph_sparse,
                                               optimize_graph_with_planes_sparse)
 
-    for what, fn in (("circuit", optimize_graph_sparse),
-                     ("full-circuit", optimize_graph_with_planes_sparse)):
-        *graph, cfg = graphs[what]
-        ref, s_ref = _sync_s(lambda: fn(*graph, cfg._replace(solver="direct")))
-        cg, s_cg = _sync_s(lambda: fn(*graph, cfg._replace(solver="cg")))
-        _solve_line(f"{what} ({graph[0].shape[0]} padded poses)", "direct", ref, s_ref)
-        _solve_line(f"{what} ({graph[0].shape[0]} padded poses)", "cg", cg, s_cg)
-        dt, dr = _pose_gap(cg.poses, ref.poses)
-        rel = abs(float(cg.chi2) - float(ref.chi2)) / abs(float(ref.chi2))
-        extra = ""
-        if hasattr(cg, "planes"):
-            extra = f", planes {float((cg.planes - ref.planes).abs().max()):.3g} apart"
-        print(f"[cg-graphs] {what}: CG against direct: chi2 {rel:.3g} relative, poses "
-              f"{dt:.3g} m / {dr:.3g} (rotation entries){extra}; the solves moved the poses by "
-              f"up to {_pose_gap(ref.poses, graph[0])[0]:.3g} m", flush=True)
-        if not (rel <= CG_CHI2_RTOL and dt <= CG_POSE_M and dr <= CG_POSE_M):
-            fail(f"{what}: CG ends chi2 {rel:.3g} relative and {dt:.3g} m / {dr:.3g} from the "
-                 f"direct solve (limits {CG_CHI2_RTOL}, {CG_POSE_M} m)")
-        if what == "circuit":
-            again, _ = _sync_s(lambda: fn(*graph, cfg._replace(solver="cg")))
-            same = (torch.equal(again.poses, cg.poses) and torch.equal(again.chi2, cg.chi2)
-                    and int(again.iterations) == int(cg.iterations))
-            print(f"[cg-graphs] circuit: a second CG solve "
-                  f"{'agrees to the bit' if same else 'DIFFERS'}", flush=True)
-            if not same:
-                fail("circuit: two CG solves of one graph differ")
+    fn = {"circuit": optimize_graph_sparse,
+          "full-circuit": optimize_graph_with_planes_sparse}[what]
+    *graph, cfg = graph_cfg
+    ref, s_ref = _sync_s(lambda: fn(*graph, cfg._replace(solver="direct")))
+    cg, s_cg = _sync_s(lambda: fn(*graph, cfg._replace(solver="cg")))
+    _solve_line(f"{what} ({graph[0].shape[0]} padded poses)", "direct", ref, s_ref)
+    _solve_line(f"{what} ({graph[0].shape[0]} padded poses)", "cg", cg, s_cg)
+    dt, dr = _pose_gap(cg.poses, ref.poses)
+    rel = abs(float(cg.chi2) - float(ref.chi2)) / abs(float(ref.chi2))
+    extra = ""
+    if hasattr(cg, "planes"):
+        extra = f", planes {float((cg.planes - ref.planes).abs().max()):.3g} apart"
+    print(f"[cg-graphs] {what}: CG against direct: chi2 {rel:.3g} relative, poses "
+          f"{dt:.3g} m / {dr:.3g} (rotation entries){extra}; the solves moved the poses by "
+          f"up to {_pose_gap(ref.poses, graph[0])[0]:.3g} m", flush=True)
+    if not (rel <= CG_CHI2_RTOL and dt <= CG_POSE_M and dr <= CG_POSE_M):
+        fail(f"{what}: CG ends chi2 {rel:.3g} relative and {dt:.3g} m / {dr:.3g} from the "
+             f"direct solve (limits {CG_CHI2_RTOL}, {CG_POSE_M} m)")
+    if what == "circuit":
+        again, _ = _sync_s(lambda: fn(*graph, cfg._replace(solver="cg")))
+        same = (torch.equal(again.poses, cg.poses) and torch.equal(again.chi2, cg.chi2)
+                and int(again.iterations) == int(cg.iterations))
+        print(f"[cg-graphs] circuit: a second CG solve "
+              f"{'agrees to the bit' if same else 'DIFFERS'}", flush=True)
+        if not same:
+            fail("circuit: two CG solves of one graph differ")
 
-    *graph, cfg = graphs["full-slice"]
+
+def cg_full_slice_phase(graph_cfg):
+    """The dense Jacobi-PCG against the dense Cholesky on the full-slice's
+    floor graph, and against the port's CPU run of the same solve."""
+    from gorio_tpu_torch.graph.solver import optimize_graph_with_planes
+
+    *graph, cfg = graph_cfg
     what = f"full-slice ({graph[0].shape[0]} padded poses, dense)"
     ref, s_ref = _sync_s(lambda: optimize_graph_with_planes(*graph, cfg._replace(solver="dense")))
     _solve_line(what, "dense", ref, s_ref)
@@ -2223,12 +2349,13 @@ def chunked_preint_phase():
                 fail(f"preint {method} quantum={quantum}: the card is off the CPU in {bad}")
 
 
-def solvers_batched_phase(K, seq, tmp, dense_ate, graphs, align_maps):
-    """CG on the slice through the CLI and on the graphs in memory, the
-    batched forms, `gn_optimize` and the chunked preintegration."""
+def solvers_batched_phase(K, seq, tmp, dense_ate, full_slice_graph, align_maps):
+    """CG on the slice through the CLI and on the full-slice's floor graph,
+    the batched forms, `gn_optimize` and the chunked preintegration (CG on
+    the circuits' graphs runs in their lanes)."""
     t0 = time.perf_counter()
     launches = {"cg-slice": cg_slice_phase(K, seq, tmp, dense_ate)}
-    cg_graphs_phase(graphs)
+    cg_full_slice_phase(full_slice_graph)
     ego_batch()
     ugpm_batch()
     ndt_batch(align_maps)
@@ -2239,9 +2366,360 @@ def solvers_batched_phase(K, seq, tmp, dense_ate, graphs, align_maps):
     return launches
 
 
+def tool_inputs():
+    """`tests/tool_inputs.py`, the inputs both packages' runs share."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import tool_inputs as ti
+
+    return ti
+
+
+def start_inputs(seq, out):
+    """Build the bag and gt-adjust's inputs in a child process (host numpy
+    and pure-Python LZ4) while the card runs the earlier phases."""
+    return subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "tool_inputs.py"), str(seq), str(out)],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)}, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def bag_phase(K, seq, tmp, inputs_proc, slice_ate, full_slice_ate):
+    """convert-bag -> slam on the card with GPS edges -> evaluate, on the
+    slice written as a rosbag with epoch stamps."""
+    import shutil
+
+    import numpy as np
+
+    from gorio_tpu_torch.cli import main as cli
+
+    ti = tool_inputs()
+    t_phase = t0 = time.perf_counter()
+    out, _ = inputs_proc.communicate(timeout=600)
+    if inputs_proc.returncode != 0:
+        fail(f"tool_inputs.py exited {inputs_proc.returncode}: {out[-2000:]}")
+    info = json.loads((tmp / "inputs" / "inputs.json").read_text())
+    counts = info["bag"]
+    print(f"[bag] built {info['bag_bytes']} bytes in {info['bag_s']:.1f} s in a child process "
+          f"(waited {time.perf_counter() - t0:.1f} s): {counts}", flush=True)
+    bag = tmp / "inputs" / "bag" / "slice.bag"
+    n_seq = len(list(seq.glob("*.grf")))  # the slice's 98
+    summary = cli(["convert-bag", str(bag), "--list-topics"])
+    want = {ti.TOPICS["radar"]: n_seq, ti.TOPICS["imu"]: counts["imu"],
+            ti.TOPICS["twist"]: counts["twist"], ti.TOPICS["gps"]: counts["gps"]}
+    got = {topic: n for topic, (_, n) in summary.items()}
+    if got != want or counts["frames"] != n_seq:
+        fail(f"bag: topics_summary counts {got}, the bag holds {want}")
+    conv = tmp / "bag_seq"
+    t0 = time.perf_counter()
+    n = cli(["convert-bag", str(bag), "--output", str(conv), *ti.CONVERT_FLAGS])
+    t_convert = time.perf_counter() - t0
+    gaps = ti.frame_gaps(seq, conv, t_base=T_BASE)
+    rate = info["bag_bytes"] / t_convert / 1e6
+    print(f"[bag] convert-bag: {n} frames in {t_convert:.2f} s ({rate:.2f} MB/s, pure-Python "
+          f"LZ4 and bz2); against the slice: {gaps}; points {counts['points']}, "
+          f"{counts['points'] - counts['kept']} with power <= 0", flush=True)
+    if not (n == n_seq and gaps["counts_equal"] and gaps["bits_equal"]
+            and gaps["xyz_rel_gap"] <= 2.0 ** -22 and gaps["stamp_gap_s"] <= 1e-6
+            and (conv / "gps.npz").is_file()):
+        fail(f"bag: the converted sequence differs from the slice: {n} frames, {gaps}")
+    shutil.copy(bag.parent / "groundtruth.tum", conv / "groundtruth.tum")
+    ti.write_bag_config(cli, tmp / "bag_config.json")
+    slam, odo, timer, launches, batched, wall, result = run_slam(
+        K, conv, tmp / "bag.tum", [*ti.BAG_SLAM, "--config", str(tmp / "bag_config.json")])
+    lm_iters, verify_iters = check_common("bag", slam, odo, launches)
+    report("bag", n, slam, timer, launches, batched, wall, result, lm_iters, verify_iters)
+    gates = ti.gps_gates(slam, np.load(conv / "gps.npz")["t"])
+    stamps = slam.trajectory()[0]
+    rec = BAG_JAX
+    ate = result["ate_rmse_m"]
+    print(f"[bag] {CARD}: fixes {counts['gps']}, GPS gates {gates} (JAX "
+          f"{ {k: rec[k] for k in gates} }); keyframes {len(slam.keyframes)} (JAX "
+          f"{rec['keyframes']}), loops {len(slam.loops)} (JAX {len(rec['loops'])}), first "
+          f"stamp {stamps[0]:.6f}; ATE {ate:.6f} m (JAX {rec['ate_m']:.6f} m; the slice "
+          f"{slice_ate:.6f} m, the full-slice {full_slice_ate:.6f} m)", flush=True)
+    if not stamps.min() >= T_BASE:
+        fail(f"bag: keyframe stamps from {stamps.min()} s, the bag's from {T_BASE} s")
+    if gates["gps_edges"] != rec["gps_edges"] or gates["gps_edges"] == 0:
+        fail(f"bag: {gates['gps_edges']} GPS edges, the JAX record {rec['gps_edges']}")
+    if abs(len(slam.keyframes) - rec["keyframes"]) > BAG_KEYFRAME_TOL * rec["keyframes"]:
+        fail(f"bag: {len(slam.keyframes)} keyframes, the JAX record {rec['keyframes']} +- 2%")
+    if not ate <= 1.25 * rec["ate_m"] + 0.02:
+        fail(f"bag: ATE {ate} m > 1.25 x the JAX record {rec['ate_m']} + 0.02 m")
+    print(f"[bag] {CARD}: the phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def kdtree_oracle(K, label, q, r, m, p):
+    """Both kernels against the exact kd-tree's 1-NN (float32) over the
+    unmasked refs, on one input's queries (a padded cloud's queries at
+    the pad coordinate excluded: the masked refs' bias decides theirs):
+    d2 within KDTREE_D2_RTOL, indices equal except at ties within
+    KDTREE_TIE. Returns the near-ties of each kernel."""
+    import numpy as np
+
+    from gorio_tpu_torch.core.pointcloud import PAD_COORD
+    from gorio_tpu_torch.io.native import NativeKDTree
+
+    qf = q.float().cpu().numpy().reshape(-1, 3)
+    rf = r.float().cpu().numpy().reshape(-1, 3)
+    valid = np.flatnonzero(m.cpu().numpy().reshape(-1))
+    real = np.flatnonzero(~np.all(qf == np.float32(PAD_COORD), axis=1))
+    qf = qf[real]
+    t0 = time.perf_counter()
+    idx, d2 = NativeKDTree(rf[valid]).knn(qf, 1)
+    t_tree = time.perf_counter() - t0
+    want_idx, want_d2 = valid[idx[:, 0]], d2[:, 0].astype(np.float64)
+    ties = {}
+    for name, out in (("nn1", K.nn1_best(q, r, m)), ("nn1_select", K.nn1_select(q, r, p, m))):
+        got_idx = out[0].cpu().numpy().reshape(-1)[real]
+        got_d2 = out[1].double().cpu().numpy().reshape(-1)[real]
+        if not np.all(np.abs(got_d2 - want_d2) <= KDTREE_D2_RTOL * np.maximum(want_d2, 1e-12)):
+            fail(f"kd-tree [{label}]: {name}'s d2 off the exact 1-NN by "
+                 f"{np.abs(got_d2 - want_d2).max():.3g}")
+        differ = np.flatnonzero(got_idx != want_idx)
+        alt = ((qf[differ].astype(np.float64) - rf[got_idx[differ]]) ** 2).sum(axis=1)
+        if not np.all(np.abs(alt - want_d2[differ]) <= KDTREE_TIE * np.maximum(want_d2[differ],
+                                                                               1e-12)):
+            fail(f"kd-tree [{label}]: {name} picks other refs than the exact 1-NN off a tie")
+        ties[name] = len(differ)
+    print(f"[tools] kd-tree [{label}]: {len(qf)} queries ({len(q.reshape(-1, 3)) - len(qf)} "
+          f"padding left out), {len(valid)} refs, tree {t_tree:.2f} s; nn1 and nn1_select "
+          f"agree, near-ties {ties}", flush=True)
+    return ties
+
+
+def tools_phase(K, tmp, cases):
+    """gt-adjust and utm-align as graph solves on the card, align-traj,
+    and both kernels against the exact kd-tree."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    import gorio_tpu_torch.graph.solver as solver
+    from gorio_tpu_torch.cli import main as cli
+    from gorio_tpu_torch.io.tum import load_tum
+
+    ti = tool_inputs()
+    t_phase = time.perf_counter()
+    d = tmp / "inputs"
+    loops = json.loads((d / "inputs.json").read_text())["loops"]
+    K.reset_launch_counts()
+    solves = []
+    plain = solver.optimize_graph
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        solves.append((time.perf_counter() - t0, int(res.iterations)))
+        return res
+
+    solver.optimize_graph = timed
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        got = cli(["gt-adjust", str(d / "drifty.tum"), str(tmp / "adjusted.tum"),
+                   *[f"--loop={pair}" for pair in loops], "--device", "cuda"])
+    finally:
+        solver.optimize_graph = plain
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rec = GT_ADJUST_JAX
+    _, before = load_tum(d / "drifty.tum")
+    _, after = load_tum(tmp / "adjusted.tum")
+    s, iters = solves[0]
+    gap = max(float(np.abs(after[int(k), :3, 3] - np.asarray(v)).max())
+              for k, v in rec["sampled"].items())
+    print(f"[tools] gt-adjust {CARD}: {got['n_poses']} poses ({6 * got['n_poses']} dense dims), "
+          f"{got['n_loops']} loops, {iters} LM iterations (JAX {rec['iterations']}) in {s:.2f} s "
+          f"({1e3 * s / iters:.2f} ms per LM iteration), peak {peak:.2f} GiB; chi2 "
+          f"{got['chi2']!r} (JAX {rec['chi2']!r}); sampled poses {gap:.3g} m from the JAX "
+          f"record; end gap {ti.end_gap(before):.4f} -> {ti.end_gap(after):.4f} m, loop gap "
+          f"{ti.loop_gap(before, loops):.4f} -> {ti.loop_gap(after, loops):.4f} m (JAX "
+          f"{rec['loop_gap_after_m']:.4f})", flush=True)
+    if loops != rec["loops"] or got["iterations"] != rec["iterations"]:
+        fail(f"gt-adjust: loops {loops} / iterations {got['iterations']} differ from the JAX "
+             f"record's {rec['loops']} / {rec['iterations']}")
+    if not abs(got["chi2"] - rec["chi2"]) <= GT_CHI2_RTOL * rec["chi2"] or not gap <= GT_POSE_M:
+        fail(f"gt-adjust: chi2 {got['chi2']} (JAX {rec['chi2']}), poses {gap} m off the record")
+
+    got = cli(["utm-align", str(d / "bag" / "groundtruth.tum"), str(d / "bag" / "gps_utm.txt"),
+               "--device", "cuda"])
+    rec = UTM_ALIGN_JAX
+    T, Tr = np.asarray(got["T_world_utm"]), np.asarray(rec["T_world_utm"])
+    dt, dR = float(np.abs(T[:3, 3] - Tr[:3, 3]).max()), float(np.abs(T[:3, :3] - Tr[:3, :3]).max())
+    print(f"[tools] utm-align {CARD}: {got['n_pairs']} pairs (JAX {rec['n_pairs']}), chi2 "
+          f"{got['chi2']!r} (JAX {rec['chi2']!r}); T_world_utm {dt:.3g} m / {dR:.3g} off the "
+          f"JAX record", flush=True)
+    if got["n_pairs"] != rec["n_pairs"] or not (dt <= UTM_M and dR <= UTM_RAD):
+        fail(f"utm-align: {got['n_pairs']} pairs, T {dt} m / {dR} off the JAX record")
+
+    got = cli(["align-traj", str(d / "drifty.tum"), str(d / "circuit_gt.tum"), "--scale"])
+    rec = ALIGN_TRAJ_JAX
+    same = json.dumps(got) == json.dumps(rec)
+    gap = max(abs(got["scale"] - rec["scale"]),
+              float(np.abs(np.subtract(got["T"], rec["T"])).max()))
+    print(f"[tools] align-traj: scale {float(got['scale'])!r}, "
+          f"{'equal to the bit' if same else f'{gap:.3g} from'} the JAX record", flush=True)
+    if not gap <= ALIGN_TRAJ_RTOL * max(1.0, float(np.abs(rec["T"]).max())):
+        fail(f"align-traj: {gap} from the JAX record")
+    launches = dict(K.launch_counts)
+    if any(launches.values()):
+        fail(f"tools: gt-adjust, utm-align and align-traj launched kernels: {launches}")
+
+    ties = {label: kdtree_oracle(K, label, *cases[label]) for label in (MAIN, ALIGN)}
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    print(f"[tools] visualize: matplotlib {'present' if have_mpl else 'absent'} here, not run "
+          f"(the CPU tests hold it against the JAX package's PNG)", flush=True)
+    print(f"[tools] {CARD}: the phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, ties
+
+
+# ---- lanes -----------------------------------------------------------------
+
+# The phases of the two circuit runs go in child processes of their own
+# (`chip_smoke.py --lane NAME TMP T0`), side by side with the slice's phases
+# in the parent: each process is bound by its own host thread, and the card
+# is idle most of the time. A lane waits for the circuit's simulation, runs
+# its phases and shares their launch counts. Values that cross processes
+# are small JSON files under TMP/shared.
+T0 = time.time()  # the script's start, on every process's clock
+
+
+def timed(name, fn, *args):
+    """Run one phase and print its seconds and when it ended since the
+    script started."""
+    t = time.time()
+    out = fn(*args)
+    print(f"[time] {name}: {time.time() - t:.1f} s, ended {time.time() - T0:.1f} s after the "
+          f"start", flush=True)
+    return out
+
+
+def share(tmp, name, value):
+    """Write `value` for another process (atomically)."""
+    path = tmp / "shared" / f"{name}.json"
+    path.parent.mkdir(exist_ok=True)
+    part = path.with_name(f".{path.name}.{os.getpid()}")
+    part.write_text(json.dumps(value))
+    os.replace(part, path)
+
+
+def shared(tmp, name, timeout=900):
+    """Wait for the value another process `share`d under `name`."""
+    path = tmp / "shared" / f"{name}.json"
+    t = time.perf_counter()
+    while not path.exists():
+        if time.perf_counter() - t > timeout:
+            fail(f"nothing shared as {name} after {timeout} s")
+        time.sleep(0.2)
+    return json.loads(path.read_text())
+
+
+def share_simulation(tmp, proc, what):
+    """Wait for a simulation (in a thread of the parent) and share its end."""
+    out, _ = proc.communicate()
+    share(tmp, f"simulated-{what}", {"rc": proc.returncode, "tail": out[-2000:]})
+
+
+def wait_simulation(tmp, what):
+    t0 = time.perf_counter()
+    sim = shared(tmp, f"simulated-{what}")
+    if sim["rc"] != 0:
+        fail(f"simulate ({what}) exited {sim['rc']}: {sim['tail']}")
+    print(f"[{what}] {sim['tail'].strip().splitlines()[-1]} (waited "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def circuit_lane(K, tmp):
+    """The circuit's `slam`, its posterior and smoother, and CG on its final
+    graph."""
+    seq = tmp / "circuit"
+    wait_simulation(tmp, "circuit")
+    launches = {}
+    launches["circuit"], slam, graph = timed("circuit", circuit_phase, K, seq, tmp)
+    launches["posterior"] = timed("circuit-posterior", circuit_posterior_phase, K, slam, seq)
+    timed("cg-graphs circuit", cg_graph_phase, "circuit", graph)
+    return launches
+
+
+def full_circuit_lane(K, tmp):
+    """The circuit with the paper's configuration, and CG on its first
+    floor graph at 512 padded poses."""
+    seq = tmp / "circuit"
+    wait_simulation(tmp, "circuit")
+    launches, _, graph = timed("full-circuit", full_circuit_phase, K, seq, tmp)
+    timed("cg-graphs full-circuit", cg_graph_phase, "full-circuit", graph)
+    return {"full-circuit": launches}
+
+
+LANES = {"circuit": circuit_lane, "full-circuit": full_circuit_lane}
+LANES_PRINTED = set()  # the lanes whose output this process has printed
+
+
+def start_lane(name, tmp):
+    with open(tmp / f"lane-{name}.log", "w") as log:
+        return subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--lane", name, str(tmp), repr(T0)],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+
+
+def print_lane(tmp, name, tail=None):
+    log = (tmp / f"lane-{name}.log").read_text()[-tail if tail else 0:]
+    print(log, end="" if log.endswith("\n") or not log else "\n", flush=True)
+    LANES_PRINTED.add(name)
+
+
+def lane_failed(tmp, name, rc):
+    print_lane(tmp, name, tail=6000)
+    fail(f"the {name} lane exited {rc}")
+
+
+def check_lanes(tmp, lanes):
+    """Fail as soon as a lane has failed."""
+    for name, proc in lanes.items():
+        if proc.poll() not in (None, 0):
+            lane_failed(tmp, name, proc.returncode)
+
+
+def finish_lane(tmp, name, proc, timeout=1100):
+    """Wait for a lane, print its output and return its launch counts."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        fail(f"the {name} lane did not end within {timeout} s")
+    if rc != 0:
+        lane_failed(tmp, name, rc)
+    print_lane(tmp, name)
+    return shared(tmp, f"lane-{name}", timeout=0)
+
+
+def lane_main(name, tmp, t0):
+    """One lane in its own process: the card set up as in `main`, the
+    kernels loaded from the parent's build."""
+    global CARD, T0
+    T0 = t0
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from gorio_tpu_torch.ops import nn as K
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    CARD = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    K.load_library()
+    share(tmp, f"lane-{name}", LANES[name](K, tmp))
+
+
 def main():
     if not (ROOT / "gorio_tpu_torch" / "ops" / "csrc" / "nn1.cu").is_file():
         fail(f"no gorio_tpu_torch package beside {Path(__file__).name}: run from the repository")
+    if sys.argv[1:2] == ["--lane"]:
+        name, tmp, t0 = sys.argv[2:5]
+        lane_main(name, Path(tmp), float(t0))
+        return
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -2257,12 +2735,20 @@ def main():
 
     with tempfile.TemporaryDirectory(prefix="gorio_smoke_") as tmp:
         tmp = Path(tmp)
-        sims = {"slice": simulate(tmp / "slice", []),  # the JAX CLI's defaults
-                "circuit": simulate(tmp / "circuit", CIRCUIT_SIM)}
+        procs = {"slice": simulate(tmp / "slice", []),  # the JAX CLI's defaults
+                 "circuit": simulate(tmp / "circuit", CIRCUIT_SIM)}
+        threading.Thread(target=share_simulation, args=(tmp, procs["circuit"], "circuit"),
+                         daemon=True).start()
         try:
-            kernels = run_phases(tmp, sims)
+            kernels = run_phases(tmp, procs)
+        except BaseException:
+            for name in LANES:  # what a lane still running had printed
+                if name not in LANES_PRINTED and (tmp / f"lane-{name}.log").exists():
+                    print(f"[lane {name}] the end of its output so far:", flush=True)
+                    print_lane(tmp, name, tail=3000)
+            raise
         finally:
-            for proc in sims.values():
+            for proc in procs.values():
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
@@ -2273,7 +2759,7 @@ def main():
                                              "count": torch.cuda.device_count()}}))
 
 
-def run_phases(tmp, sims):
+def run_phases(tmp, procs):
     from gorio_tpu_torch.io import native
     from gorio_tpu_torch.ops import nn as K
 
@@ -2290,26 +2776,39 @@ def run_phases(tmp, sims):
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"[build] {line.strip()}", flush=True)
 
-    errs, stats, shapes, S_main = kernel_phase(K)
-    wait_for(sims["slice"], "slice")
+    # the kernels' times are taken alone on the card, before the lanes start
+    errs, stats, shapes, S_main, cases = timed("kernels", kernel_phase, K)
+    lanes = {name: start_lane(name, tmp) for name in LANES}
+    procs.update({f"lane {name}": proc for name, proc in lanes.items()})
+    wait_for(procs["slice"], "slice")
+    procs["inputs"] = start_inputs(tmp / "slice", tmp / "inputs")
+    seq = tmp / "slice"
     launches = {}
-    launches["slice"], slice_keyframes, slice_slam, slice_ate = slice_phase(
-        K, tmp / "slice", tmp)
-    repeat_check(tmp / "slice")
-    launches["full-slice"], full_slice_graph = full_slice_phase(K, tmp / "slice", tmp)
-    wait_for(sims["circuit"], "circuit")
-    launches["circuit"], circuit_slam, circuit_graph = circuit_phase(K, tmp / "circuit", tmp)
-    launches["full-circuit"], _, full_circuit_graph = full_circuit_phase(
-        K, tmp / "circuit", tmp)
-    launches.update(ndt_slice_phase(K, tmp / "slice", tmp))
-    launches.update(scan_to_map_phase(K, tmp / "slice"))
-    launches["align"], align_maps = align_phase(K, tmp)
-    launches.update(stream_phase(K, tmp / "slice", tmp, slice_keyframes))
-    launches["posterior"] = posterior_phase(K, slice_slam, circuit_slam, tmp / "circuit")
-    launches.update(solvers_batched_phase(
-        K, tmp / "slice", tmp, slice_ate,
-        {"circuit": circuit_graph, "full-circuit": full_circuit_graph,
-         "full-slice": full_slice_graph}, align_maps))
+    launches["slice"], slice_keyframes, slice_slam, slice_ate = timed(
+        "slice", slice_phase, K, seq, tmp)
+    timed("repeat", repeat_check, seq)
+    launches["full-slice"], full_slice_graph, full_slice_ate = timed(
+        "full-slice", full_slice_phase, K, seq, tmp)
+    check_lanes(tmp, lanes)
+    launches.update(timed("ndt-slice", ndt_slice_phase, K, seq, tmp))
+    launches.update(timed("scan-to-map", scan_to_map_phase, K, seq))
+    launches["align"], align_maps = timed("align", align_phase, K, tmp)
+    check_lanes(tmp, lanes)
+    launches.update(timed("stream", stream_phase, K, seq, tmp, slice_keyframes))
+    check_lanes(tmp, lanes)
+    launches["posterior"] = timed("posterior", posterior_phase, K, slice_slam)
+    check_lanes(tmp, lanes)
+    launches.update(timed("solvers-batched", solvers_batched_phase, K, seq, tmp, slice_ate,
+                          full_slice_graph, align_maps))
+    check_lanes(tmp, lanes)
+    launches["bag"] = timed("bag", bag_phase, K, seq, tmp, procs["inputs"], slice_ate,
+                            full_slice_ate)
+    launches["tools"], _ = timed("tools", tools_phase, K, tmp, cases)
+    for name, proc in lanes.items():
+        for path, counts in finish_lane(tmp, name, proc).items():
+            mine = launches.get(path, {})  # the posterior path spans both processes
+            launches[path] = {k: mine.get(k, 0) + n for k, n in counts.items()}
+    print(f"[time] {CARD}: the whole script {time.time() - T0:.1f} s", flush=True)
 
     replaces = {"nn1": "gorio_tpu/ops/nn_pallas.py:34",
                 "nn1_select": "gorio_tpu/ops/nn_pallas.py:125"}

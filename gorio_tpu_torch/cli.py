@@ -6,6 +6,17 @@
                 frontend and the back end, with deadline accounting
   evaluate    — ATE/RTE of a TUM trajectory vs ground truth
   align       — align two PCD scans with every registration method
+  align-traj  — the rigid (or similarity) transform between two
+                trajectories by stamp association (Umeyama closed form)
+  gt-adjust   — graph-based ground-truth adjustment: Huber between edges
+                and identity loop edges, LM on the card (`src/gt_adjust.cpp`)
+  utm-align   — the UTM->world transform as a one-vertex graph solve over
+                stamp-associated (trajectory, GPS) pairs
+                (`src/gps_traj_align.cpp`)
+  convert     — CSV / NPZ / NPY / PCD frames -> .grf sequence
+  convert-bag — rosbag v2.0 (NTU4DRadLM-style) -> .grf sequence with
+                imu.npz and gps.npz
+  visualize   — render markers, trajectories and a map to a PNG
   dump-config — write the default typed config tree (JSON, or YAML)
 
 Usage: python -m gorio_tpu_torch.cli <command> [args]
@@ -15,8 +26,11 @@ counterparts and, like them, run loop closure unless `--no-loops`. `slam
 --config` reads a `dump-config` tree (either package's), whose `slam` and
 `odometry` fields the flags override; `--dump` writes the graph and the
 keyframes, `--map` the voxelised map's points. `--device` (slam, stream,
-align) picks the torch device (default cuda); there is no fallback to the
-CPU.
+align, gt-adjust, utm-align) picks the torch device (default cuda); there
+is no fallback to the CPU. The other tools take the arguments and print
+the JSON keys of their JAX CLI counterparts; `align-traj`, `convert`,
+`convert-bag` and `visualize` are host numpy (`visualize` needs
+matplotlib). The JAX CLI's `bench` has no counterpart yet.
 """
 
 from __future__ import annotations
@@ -451,6 +465,182 @@ def cmd_align(args):
     return rows
 
 
+def cmd_align_traj(args):
+    """The transform mapping `source`'s positions onto `target`'s at the
+    associated stamps (Umeyama, with `--scale` a similarity); `--output`
+    writes the aligned source. Returns the printed dict."""
+    from .io.tum import umeyama_alignment
+
+    es, ep = load_tum(args.source)
+    gs, gp = load_tum(args.target)
+    idx = np.clip(np.searchsorted(gs, es), 0, len(gs) - 1)
+    c, R, t = umeyama_alignment(ep[:, :3, 3], gp[idx][:, :3, 3], with_scale=args.scale)
+    T = np.eye(4)
+    T[:3, :3] = c * R
+    T[:3, 3] = t
+    result = {"scale": c, "T": T.tolist()}
+    print(json.dumps(result))
+    if args.output:
+        out = ep.copy()
+        out[:, :3, 3] = (c * (R @ ep[:, :3, 3].T)).T + t
+        out[:, :3, :3] = np.einsum("ij,njk->nik", R, ep[:, :3, :3])
+        save_tum(args.output, es, out)
+    return result
+
+
+def cmd_gt_adjust(args):
+    """Graph-based ground-truth adjustment (`src/gt_adjust.cpp`): between
+    edges of the consecutive poses (information I / odom_stddev, Huber)
+    and identity loop edges at the given index pairs (rotation information
+    1 / loop_rot_var, translation 1 / loop_trans_var, `gt_adjust.cpp:
+    74-78`), one dense LM solve on `--device` for every size, as the JAX
+    CLI's. Returns the printed dict."""
+    from .graph.graph import PoseGraph
+    from .graph.solver import SolveConfig, optimize_graph
+
+    device = _device(args.device)
+    stamps, poses = load_tum(args.input)
+    n = len(stamps)
+    g = PoseGraph()
+    for T in poses:
+        g.add_pose(T)
+    info_odom = np.eye(6) / args.odom_stddev
+    for i in range(1, n):
+        g.add_between(i - 1, i, np.linalg.inv(poses[i - 1]) @ poses[i], info=info_odom,
+                      robust_delta=args.huber)
+    info_loop = np.eye(6)
+    info_loop[:3, :3] /= args.loop_rot_var  # [rot, trans] state order
+    info_loop[3:, 3:] /= args.loop_trans_var
+    n_loops = 0
+    for pair in args.loop or []:
+        i, j = (int(x) for x in pair.split(":"))
+        if not (0 <= i < n and 0 <= j < n):
+            sys.exit(f"loop index pair {pair} out of range (n={n})")
+        g.add_between(i, j, np.eye(4), info=info_loop)
+        n_loops += 1
+    poses0, graph = g.freeze(device=device)
+    res = optimize_graph(poses0, graph, SolveConfig(max_iterations=args.iters))
+    save_tum(args.output, stamps, res.poses.cpu().numpy())
+    result = {"n_poses": n, "n_loops": n_loops, "chi2": float(res.chi2),
+              "iterations": int(res.iterations), "output": args.output}
+    print(json.dumps(result))
+    return result
+
+
+def cmd_utm_align(args):
+    """T_world_utm by a one-vertex graph solve (`src/gps_traj_align.cpp:
+    225-247`): the GPS rows (`stamp east north alt [var_x var_y var_z]`,
+    whitespace or commas, `#` comments) pass the covariance gate
+    (`gps_traj_align.cpp:157-158`), each goes to the trajectory's nearest
+    stamp within `--max-dt`, and one UTM-alignment factor per pair
+    (information diag(1 / var)) refines the closed-form seed on
+    `--device`. The fixes are recentred on their mean before the solve
+    (raw UTM is ~1e6 m) and the centring undone after it. Returns the
+    printed dict."""
+    from .graph.graph import PoseGraph
+    from .graph.solver import SolveConfig, optimize_graph_with_planes
+    from .io.tum import umeyama_alignment
+
+    device = _device(args.device)
+    stamps, poses = load_tum(args.trajectory)
+    rows = []
+    with open(args.gps) as f:
+        for line in f:
+            line = line.strip().replace(",", " ")
+            if not line or line.startswith("#"):
+                continue
+            v = [float(x) for x in line.split()]
+            rows.append(v + [args.default_var] * (7 - len(v)))
+    if not rows:
+        sys.exit("no GPS fixes parsed")
+    gps = np.asarray(rows)
+    gps = gps[(gps[:, 4] <= args.max_var_xy) & (gps[:, 6] <= args.max_var_z)]
+    idx = np.clip(np.searchsorted(stamps, gps[:, 0]), 0, len(stamps) - 1)
+    idx_lo = np.clip(idx - 1, 0, len(stamps) - 1)
+    idx = np.where(np.abs(stamps[idx_lo] - gps[:, 0]) < np.abs(stamps[idx] - gps[:, 0]),
+                   idx_lo, idx)
+    ok = np.abs(stamps[idx] - gps[:, 0]) < args.max_dt
+    gps, idx = gps[ok], idx[ok]
+    if len(gps) < 3:
+        sys.exit(f"only {len(gps)} associated pairs (need >= 3)")
+    centroid = gps[:, 1:4].mean(axis=0)
+    p_utm_c = gps[:, 1:4] - centroid
+    p_world = poses[idx, :3, 3]
+    _, R0, t0 = umeyama_alignment(p_utm_c, p_world, with_scale=False)
+    T0 = np.eye(4)
+    T0[:3, :3] = R0
+    T0[:3, 3] = t0
+    g = PoseGraph()
+    g.add_pose(T0)
+    for k in range(len(gps)):
+        info = np.diag(1.0 / np.maximum(gps[k, 4:7], 1e-9))
+        g.add_utm_align(0, p_utm_c[k], p_world[k], info=info)
+    poses0, graph = g.freeze(device=device)
+    planes0, pg = g.freeze_planes(device=device)
+    res = optimize_graph_with_planes(
+        poses0, planes0, graph, pg, SolveConfig(max_iterations=args.iters, fix_first=False))
+    T = res.poses[0].cpu().numpy().astype(np.float64)
+    T[:3, 3] = T[:3, 3] - T[:3, :3] @ centroid  # T_world_utm = T_c . Translate(-centroid)
+    result = {"n_pairs": int(len(gps)), "chi2": float(res.chi2), "T_world_utm": T.tolist()}
+    print(json.dumps(result))
+    if args.output:
+        np.savetxt(args.output, T)
+    return result
+
+
+def cmd_convert(args):
+    """Raw frames (and an IMU CSV, a ground-truth TUM) -> .grf sequence."""
+    from glob import glob
+
+    from .io.convert import convert_sequence
+
+    frames = [f for pat in args.frames for f in glob(pat)]
+    # a broad glob easily swallows the sidecar files: drop them
+    side = {str(Path(p).resolve()) for p in (args.imu, args.gt) if p}
+    frames = [f for f in frames if str(Path(f).resolve()) not in side]
+    if not frames:
+        sys.exit("no input frames matched")
+    n = convert_sequence(frames, args.output, imu_csv=args.imu, gt_tum=args.gt, rate=args.rate,
+                         min_range=args.min_range, max_range=args.max_range)
+    print(f"converted {n} frames -> {args.output}")
+    return n
+
+
+def cmd_convert_bag(args):
+    """Rosbag -> .grf sequence (the NTU Radar_to_livox rotation unless
+    `--no-ntu-extrinsic`), or with `--list-topics` the bag's topics.
+    Returns the frame count, or the topics' summary {topic: (type, count)}."""
+    from .io.rosbag import RosbagReader, convert_rosbag
+
+    if args.list_topics:
+        summary = RosbagReader(args.bag).topics_summary()
+        for topic, (msgtype, count) in sorted(summary.items()):
+            print(f"{topic:<40} {msgtype:<40} {count}")
+        return summary
+    if not args.output:
+        sys.exit("--output is required (or use --list-topics)")
+    n = convert_rosbag(
+        args.bag, args.output, radar_topic=args.radar_topic, imu_topic=args.imu_topic,
+        twist_topic=args.twist_topic, gps_topic=args.gps_topic,
+        power_threshold=args.power_threshold, apply_ntu_extrinsic=not args.no_ntu_extrinsic,
+        max_frames=args.max_frames,
+    )
+    print(f"converted {n} radar frames -> {args.output}")
+    return n
+
+
+def cmd_visualize(args):
+    """A run's markers JSON, trajectories and map npz as a top-down PNG
+    (the rviz MarkerArray and map topics, `radar_graph_slam_nodelet.cpp:
+    885-1121`)."""
+    from .utils.viz import render_run
+
+    out = render_run(args.output, markers_json=args.markers, trajectory_tum=args.trajectory,
+                     groundtruth_tum=args.groundtruth, map_npz=args.map, title=args.title)
+    print(f"wrote {out}")
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="gorio_tpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -538,6 +728,72 @@ def main(argv=None):
     s.add_argument("--print-transform", action="store_true")
     s.add_argument("--device", default="cuda", help="torch device (default cuda)")
     s.set_defaults(fn=cmd_align)
+
+    s = sub.add_parser("align-traj")
+    s.add_argument("source")
+    s.add_argument("target")
+    s.add_argument("--scale", action="store_true")
+    s.add_argument("--output", default=None)
+    s.set_defaults(fn=cmd_align_traj)
+
+    s = sub.add_parser("convert")
+    s.add_argument("frames", nargs="+", help="frame file globs (.csv/.npz/.npy/.pcd)")
+    s.add_argument("--output", required=True)
+    s.add_argument("--imu", default=None, help="CSV t,wx,wy,wz[,vx,vy,vz]")
+    s.add_argument("--gt", default=None, help="ground-truth TUM file to bundle")
+    s.add_argument("--rate", type=float, default=10.0)
+    s.add_argument("--min-range", type=float, default=0.0)
+    s.add_argument("--max-range", type=float, default=float("inf"))
+    s.set_defaults(fn=cmd_convert)
+
+    s = sub.add_parser("convert-bag")
+    s.add_argument("bag", help="rosbag v2.0 file (NTU4DRadLM-style)")
+    s.add_argument("--output", default=None)
+    s.add_argument("--list-topics", action="store_true",
+                   help="print topic/type/count summary and exit")
+    s.add_argument("--radar-topic", default="/radar_enhanced_pcl")
+    s.add_argument("--imu-topic", default="/imu/data")
+    s.add_argument("--twist-topic", default=None)
+    s.add_argument("--gps-topic", default=None)
+    s.add_argument("--power-threshold", type=float, default=0.0)
+    s.add_argument("--no-ntu-extrinsic", action="store_true",
+                   help="skip the Radar_to_livox rotation (non-NTU rigs)")
+    s.add_argument("--max-frames", type=int, default=None)
+    s.set_defaults(fn=cmd_convert_bag)
+
+    s = sub.add_parser("gt-adjust")
+    s.add_argument("input", help="TUM trajectory to adjust")
+    s.add_argument("output", help="adjusted TUM trajectory")
+    s.add_argument("--loop", action="append", metavar="I:J",
+                   help="identity loop edge between pose indices (repeatable), e.g. 0:8240")
+    s.add_argument("--odom-stddev", type=float, default=0.05)
+    s.add_argument("--loop-trans-var", type=float, default=0.5)
+    s.add_argument("--loop-rot-var", type=float, default=1.0)
+    s.add_argument("--huber", type=float, default=1.0)
+    s.add_argument("--iters", type=int, default=64)
+    s.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    s.set_defaults(fn=cmd_gt_adjust)
+
+    s = sub.add_parser("utm-align")
+    s.add_argument("trajectory", help="TUM world-frame trajectory")
+    s.add_argument("gps", help="stamp east north alt [var_x var_y var_z] rows")
+    s.add_argument("--output", default=None, help="write the 4x4 T_world_utm")
+    s.add_argument("--max-dt", type=float, default=0.02)
+    s.add_argument("--max-var-xy", type=float, default=3.0)
+    s.add_argument("--max-var-z", type=float, default=8.0)
+    s.add_argument("--default-var", type=float, default=1.0)
+    s.add_argument("--iters", type=int, default=64)
+    s.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    s.set_defaults(fn=cmd_utm_align)
+
+    s = sub.add_parser("visualize")
+    s.add_argument("--output", default="run.png")
+    s.add_argument("--markers", default=None, help="export_markers JSON")
+    s.add_argument("--trajectory", default=None, help="estimated TUM trajectory")
+    s.add_argument("--groundtruth", default=None, help="ground-truth TUM trajectory")
+    s.add_argument("--map", default=None, help="map npz (from slam --map)")
+    s.add_argument("--title", default=None)
+    s.set_defaults(fn=cmd_visualize)
 
     s = sub.add_parser("dump-config")
     s.add_argument("--output", default="gorio_config.json")

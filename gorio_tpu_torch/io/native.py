@@ -2,8 +2,9 @@
 
 The port's own copy of the parts of `gorio_tpu/io/native.py` that its CLI
 calls: `write_frame` (one `.grf` radar frame), `NativeDataset` (the
-prefetching single-stage reader) and `NativePipelineDataset` (the two-thread
-decode -> pack reader). The C++ sources stay where they are;
+prefetching single-stage reader), `NativePipelineDataset` (the two-thread
+decode -> pack reader) and `NativeKDTree` (exact k-NN on the host, the 1-NN
+kernels' oracle). The C++ sources stay where they are;
 `load()` compiles them with g++ at first use into `gorio_tpu_torch/_build/`
 (gitignored, file name tagged by the sources' content) and binds them.
 """
@@ -83,6 +84,13 @@ def load():
             ctypes.POINTER(ctypes.c_double),
         ]
         lib.gorio_dataset_close.argtypes = [P]
+        lib.gorio_kdtree_create.restype = P
+        lib.gorio_kdtree_create.argtypes = [ctypes.POINTER(ctypes.c_float), I, I]
+        lib.gorio_kdtree_knn.argtypes = [
+            P, ctypes.POINTER(ctypes.c_float), I, I, ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_float),
+        ]
+        lib.gorio_kdtree_destroy.argtypes = [P]
         _LIB = lib
     return _LIB
 
@@ -189,3 +197,32 @@ class NativePipelineDataset:
 
     def __del__(self):
         self.close()
+
+
+class NativeKDTree:
+    """Exact kd-tree k-NN over float32 points on the host (`native/src/
+    kdtree.cc`): the oracle the brute-force 1-NN kernels are held to."""
+
+    def __init__(self, points, leaf_size: int = 16):
+        self._lib = load()
+        pts = np.ascontiguousarray(points, dtype=np.float32)
+        self._handle = self._lib.gorio_kdtree_create(
+            pts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), pts.shape[0], leaf_size)
+
+    def knn(self, queries, k: int):
+        """(idx (n, k) int32, d2 (n, k) float32), nearest first."""
+        q = np.ascontiguousarray(queries, dtype=np.float32)
+        n = q.shape[0]
+        idx = np.empty((n, k), np.int32)
+        d2 = np.empty((n, k), np.float32)
+        self._lib.gorio_kdtree_knn(
+            self._handle, q.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n, k,
+            idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            d2.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        )
+        return idx, d2
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self._lib.gorio_kdtree_destroy(self._handle)
+            self._handle = None

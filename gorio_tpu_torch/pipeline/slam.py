@@ -117,6 +117,7 @@ class RadarGraphSLAM:
     _last_gps_edge_index: int = -(10**9)
     _loop_checked_upto: int = 0
     _gps_lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+    _gps_converter: object = field(default=None, repr=False)  # push_nmea's GPSConverter
 
     def __post_init__(self):
         if self.cfg.preint_mode not in ("lpm", "ugpm"):
@@ -148,6 +149,26 @@ class RadarGraphSLAM:
         fix = GPSMeasurement(t, np.asarray(xyz), has_z, None if cov is None else np.asarray(cov))
         with self._gps_lock:
             self.gps_queue.append(fix)
+
+    def push_nmea(self, t: float, sentence: str, converter=None) -> bool:
+        """An NMEA sentence as a GPS fix (`nmea_callback` + `flush_gps_queue`):
+        parsed, converted to zeroed UTM by `converter` (default: one
+        `GPSConverter` per SLAM object, zeroed at its first fix) and queued
+        by `push_gps`. Returns whether a fix was queued."""
+        from ..io.gps import GPSConverter, parse_nmea
+
+        if converter is None:
+            if self._gps_converter is None:
+                self._gps_converter = GPSConverter()
+            converter = self._gps_converter
+        fix = parse_nmea(sentence)
+        if fix is None:
+            return False
+        p = converter.convert(fix)
+        if p is None:
+            return False
+        self.push_gps(t, p, has_z=fix.alt is not None)
+        return True
 
     # ---- keyframe path (`cloud_handler_callback`, `:626-743`) ------------
     def add_frame(

@@ -12,6 +12,9 @@ package's own run on the same input:
   python tests/jax_records.py verify-pairs SEQ TUM NEW:OLD [NEW:OLD ...]
   python tests/jax_records.py posterior SEQ TUM    # `sample_posterior` after `slam`
   python tests/jax_records.py smoother SEQ TUM [N]  # the loop smoother after `slam`
+  python tests/jax_records.py bag SEQ OUT       # convert-bag -> slam -> evaluate
+  python tests/jax_records.py utm-align BAGDIR  # `utm-align` on the bag's fixes
+  python tests/jax_records.py gt-adjust OUT     # `gt-adjust` and `align-traj`
 
 `scan-to-map` runs `ScanMatchingOdometry(OdometryConfig(
 enable_scan_to_map=True, registration=r))` for r in ndt and apdgicp over a
@@ -71,9 +74,26 @@ of `smoother_variants`: it prints each run's log evidence, its drop from
 the true loops', the ESS per stage, the stages that resampled, the
 acceptance and the two packages' largest difference.
 
+`bag` writes SEQ (the port's `simulate` default: 98 frames) as a rosbag
+with `tests/tool_inputs.build_slice_bag` (stamps from 1.6e9 s, one
+NavSatFix per second) to OUT/bag, converts it with the JAX CLI's
+`convert-bag` to OUT/seq, runs its `slam --fused --preprocess --preint ugpm
+--optimize-every 15` (loops on; `--config` of its `dump-config` tree with
+`tool_inputs.BAG_SLAM_FIELDS`; its reader's frames handed over as float64,
+as the port's CLI uploads them) and prints the keyframes, loops, GPS gate
+counts, the first keyframe stamp and `evaluate`'s ATE and RTE against the
+bag's shifted ground truth. `utm-align` runs the JAX CLI's `utm-align` on
+BAGDIR's ground truth and `gps_utm.txt` (the fixes as absolute UTM rows).
+`gt-adjust` writes the circuit's ground truth (`simulate --duration 75
+--seed 22 --circuit --laps 2`: 75,000 poses), takes every 60th pose with
+`tests/test_cli_tools.py`'s per-step drift (`tool_inputs.drifty_truth`),
+runs the JAX CLI's `gt-adjust` with its identity loops (1,250 poses, dense)
+and `align-traj --scale` of the drifted trajectory onto the truth, and
+prints both JSON lines, the end gaps and sampled poses.
+
 Run with `PYTHONPATH= JAX_PLATFORMS=cpu` from the repository root; the
-scan-to-map, candidates, posterior and smoother records need
-`JAX_ENABLE_X64=1`.
+scan-to-map, candidates, posterior, smoother, bag, utm-align and gt-adjust
+records need `JAX_ENABLE_X64=1`.
 """
 
 from __future__ import annotations
@@ -483,6 +503,102 @@ def smoother(seq, tum, n_particles="1024"):
     print(json.dumps(rec), flush=True)
 
 
+def _tool_inputs():
+    sys.path.insert(0, str(ROOT / "tests"))
+    import tool_inputs
+
+    return tool_inputs
+
+
+def bag(seq, out):
+    """The JAX CLI's convert-bag -> slam -> evaluate on the slice's bag."""
+    import jax
+
+    import gorio_tpu.cli as cli
+    import gorio_tpu.io.native as jnative
+    import gorio_tpu.pipeline.slam as slam_mod
+    from gorio_tpu.io.tum import ate_rmse, load_tum, rte
+
+    assert jax.config.jax_enable_x64, "run with JAX_ENABLE_X64=1"
+    ti = _tool_inputs()
+    out = Path(out)
+    (out / "bag").mkdir(parents=True, exist_ok=True)
+    info = ti.build_slice_bag(seq, out / "bag" / "slice.bag")
+    t0 = time.perf_counter()
+    cli.main(["convert-bag", str(out / "bag" / "slice.bag"), "--output", str(out / "seq"),
+              *ti.CONVERT_FLAGS])
+    t_convert = time.perf_counter() - t0
+    made = []
+
+    class Caught(slam_mod.RadarGraphSLAM):
+        def __post_init__(self):
+            super().__post_init__()
+            made.append(self)
+
+    class Float64Frames(jnative.NativePipelineDataset):
+        def __next__(self):
+            stamp, n, packed = super().__next__()
+            return stamp, n, np.asarray(packed, np.float64)
+
+    slam_mod.RadarGraphSLAM = Caught
+    jnative.NativePipelineDataset = Float64Frames
+    t0 = time.perf_counter()
+    ti.write_bag_config(cli.main, out / "config.json")
+    cli.main(["slam", "--dataset", str(out / "seq"), "--output", str(out / "est.tum"),
+              *ti.BAG_SLAM, "--config", str(out / "config.json")])
+    wall = time.perf_counter() - t0
+    slam = made[0]
+    es, ep = load_tum(out / "est.tum")
+    gs, gp = load_tum(out / "bag" / "groundtruth.tum")
+    print(json.dumps({"bag": info, "convert_s": t_convert, "keyframes": len(slam.keyframes),
+                      "loops": [[int(l.key_new), int(l.key_old), round(float(l.fitness), 4)]
+                                for l in slam.loops],
+                      **ti.gps_gates(slam, np.load(out / "seq" / "gps.npz")["t"]),
+                      "first_stamp": float(es[0]),
+                      "ate_m": ate_rmse(es, ep, gs, gp), "rte_m": rte(es, ep, gs, gp),
+                      "wall_s": wall}), flush=True)
+
+
+def utm_align(bagdir):
+    """The JAX CLI's `utm-align` on the bag's ground truth and fixes."""
+    import jax
+
+    from gorio_tpu.cli import main
+
+    assert jax.config.jax_enable_x64, "run with JAX_ENABLE_X64=1"
+    bagdir = Path(bagdir)
+    main(["utm-align", str(bagdir / "groundtruth.tum"), str(bagdir / "gps_utm.txt")])
+
+
+def gt_adjust(out):
+    """The JAX CLI's `gt-adjust` (dense, 1,250 poses) and `align-traj`."""
+    import jax
+
+    from gorio_tpu.cli import main
+    from gorio_tpu.io.tum import load_tum
+
+    assert jax.config.jax_enable_x64, "run with JAX_ENABLE_X64=1"
+    ti = _tool_inputs()
+    out = Path(out)
+    out.mkdir(parents=True, exist_ok=True)
+    ti.circuit_truth(out / "circuit_gt.tum")
+    loops, _ = ti.drifty_truth(out / "circuit_gt.tum", out / "drifty.tum")
+    _, before = load_tum(out / "drifty.tum")
+    t0 = time.perf_counter()
+    main(["gt-adjust", str(out / "drifty.tum"), str(out / "adjusted.tum"),
+          *[f"--loop={pair}" for pair in loops]])
+    wall = time.perf_counter() - t0
+    _, after = load_tum(out / "adjusted.tum")
+    print(json.dumps({"loops": loops, "wall_s": wall, "poses": len(after),
+                      "end_gap_before_m": ti.end_gap(before),
+                      "end_gap_after_m": ti.end_gap(after),
+                      "loop_gap_before_m": ti.loop_gap(before, loops),
+                      "loop_gap_after_m": ti.loop_gap(after, loops),
+                      "sampled": {int(k): after[k, :3, 3].tolist()
+                                  for k in ti.sampled(len(after))}}), flush=True)
+    main(["align-traj", str(out / "drifty.tum"), str(out / "circuit_gt.tum"), "--scale"])
+
+
 def candidates_diff(a, b):
     """Print where two `candidates` records differ."""
     ra, rb = (json.loads(Path(p).read_text()) for p in (a, b))
@@ -516,5 +632,6 @@ if __name__ == "__main__":
         preint_chunked()
     else:
         {"scan-to-map": scan_to_map, "align": align, "slice-map": slice_map,
-         "cg-slice": cg_slice}[sys.argv[1]](
+         "cg-slice": cg_slice, "bag": bag, "utm-align": utm_align,
+         "gt-adjust": gt_adjust}[sys.argv[1]](
             *sys.argv[2:])

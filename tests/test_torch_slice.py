@@ -233,7 +233,8 @@ def test_port_runs_without_jax(runs, full_runs, tmp_path):
     with `--config` of `dump-config`'s tree, `--dump` and `--map`, and
     `--registration ndt`), stream, evaluate, align, `sample_posterior`,
     the loop smoother and CG solves (and imports `preintegrate` and
-    `gn_optimize`) — with the same results as this process (with loops off: the 4 s sequence never passes the 50 m
+    `gn_optimize`), the slice written as a rosbag through `convert-bag`,
+    and `gt-adjust` — with the same results as this process (with loops off: the 4 s sequence never passes the 50 m
     gate; the config tree's defaults are the flags').
     (An import hook blocks them: a `sys.modules['jax'] = None` entry trips
     scipy's array-API helper, which looks the module up by name.)"""
@@ -288,6 +289,15 @@ def test_port_runs_without_jax(runs, full_runs, tmp_path):
         "rows = main(['align', 'a.pcd', 'a.pcd', '--repeat', '0', '--device', 'cpu',"
         " '--methods', 'NDT_OMP,FAST_VGICP'])\n"
         "assert len(rows) == 2 and all(np.isfinite(r['T'].numpy()).all() for r in rows)\n"
+        f"sys.path.insert(0, {str(ROOT / 'tests')!r})\n"
+        "import tool_inputs as ti\n"
+        "ti.build_slice_bag('seq', 'slice.bag')\n"
+        "n = main(['convert-bag', 'slice.bag', '--output', 'bag', *ti.CONVERT_FLAGS])\n"
+        "import pathlib\n"
+        "assert n == len(list(pathlib.Path('seq').glob('*.grf'))) > 0\n"
+        f"r = main(['gt-adjust', {str(tmp_path / 'e.tum')!r}, 'adj.tum', '--loop', '0:3',"
+        " '--device', 'cpu'])\n"
+        "assert r['n_loops'] == 1 and np.isfinite(r['chi2'])\n"
         "assert not [m for m, v in sys.modules.items() if v is not None\n"
         "            and m.split('.')[0] in ('jax', 'jaxlib', 'gorio_tpu')]\n"
     )
