@@ -271,13 +271,36 @@ Phases, one line each (more for the tables):
                indices equal except where the two refs' d2 tie within 1e-6
                relative (counted). `visualize` needs matplotlib, which the
                card's machine lacks: the CPU tests hold it.
+  16. mesh   — the sharded programs of `gorio_tpu_torch/parallel/` at full
+               width, at the end of the circuit lane: through NCCL at world
+               1 in the lane's process (`dryrun_multichip` at its own sizes,
+               then the five programs below), then as 4 spawned ranks that
+               share the card over gloo with CUDA tensors (the multi-rank
+               arithmetic; never a stand-in for NCCL): `sharded_gicp_align`
+               over "mp" on the align phase's pair (capacity 131,072,
+               APDGICP, float32: 32,768 queries per rank against the whole
+               target through `gorio_nn1`), `sharded_ugpm_windows` over "dp"
+               on bench.py's 64 windows (float64), `sharded_optimize_graph`
+               on the circuit's final graph (512 padded poses, the dense
+               solve), `sharded_smc_step` on bench_scaling's 4,096 particles
+               per rank (D = 60, float32) and the smoother's mesh form at
+               10,240 particles on the smoother phase's draws. Each world
+               against the one-card programs on the same inputs (the
+               tolerances of tests/test_sharded_programs.py, float32
+               loosened: `MESH_*`): the same LM iteration counts, the SMC
+               parents equal off ties, the ranks' outputs equal to the bit,
+               `gorio_nn1` launched on every rank; NCCL at world > 1 where
+               the machine has more cards. Prints each program's seconds,
+               ms per LM iteration of the graph at world 1 and 4, launches
+               per rank, peak memory per rank and the phase's wall; its
+               launches (world 1 and every rank) are the "mesh" path.
 The two sequences are simulated in child processes started at the beginning,
 beside the build and the kernel phase. Once the kernel phase has taken its
 times alone on the card, two lanes start, each a child process of this
 script (`--lane NAME`) that waits for the circuit's simulation: `circuit`
 runs phase 5, the circuit's part of phase 12 (its `sample_posterior`, the
-smoother, `smc_loop_relaxation` on the card against the CPU) and CG on its
-graph (phase 13); `full-circuit` runs phase 7 and CG on its graph. The
+smoother, `smc_loop_relaxation` on the card against the CPU), CG on its
+graph (phase 13) and the mesh phase (16); `full-circuit` runs phase 7 and CG on its graph. The
 other phases run here meanwhile; the host threads and the card are shared,
 so each phase's wall clock includes the others' load. A lane's output is
 printed when it ends, and its failure fails the script. Each phase prints
@@ -1767,8 +1790,9 @@ def smoother_phase(slam, seq):
     """`smc_loop_relaxation` over the circuit at 10,240 particles, in each
     of `smoother_variants`: the true loops hold the JAX test's checks;
     moving the first loop 255 of its stddevs and the JAX test's bogus loop
-    must each lower log Z by more than 50, and the latter must resample. Returns the circuit's poses, the JAX test's bogus loop's
-    graph and the loop mask."""
+    must each lower log Z by more than 50, and the latter must resample.
+    Returns the circuit's poses, its graph with the true loops and with the
+    JAX test's bogus loop, the loop mask, and the last (bogus-loop) run."""
     import numpy as np
     import torch
 
@@ -1824,7 +1848,7 @@ def smoother_phase(slam, seq):
                  f"{BOGUS_DROP})")
         if what.startswith("the JAX test's") and not rs:
             fail(f"smoother: {what}: no stage resampled (ESS {ess.tolist()})")
-    return poses0, variants["the JAX test's bogus loop in place of the first"], mask
+    return poses0, graph, variants["the JAX test's bogus loop in place of the first"], mask, res
 
 
 def _graph_on(dev, graph):
@@ -1917,7 +1941,8 @@ def posterior_phase(K, slice_slam):
 def circuit_posterior_phase(K, circuit_slam, circuit_seq):
     """Posterior inference on the circuit's SLAM: `sample_posterior` (its
     launch count is the rest of the path's), the smoother, and
-    `smc_loop_relaxation` on the card against the CPU."""
+    `smc_loop_relaxation` on the card against the CPU. Returns the launches
+    and what `smoother_phase` returns."""
     t0 = time.perf_counter()
     K.reset_launch_counts()
     rec = posterior_run("circuit-posterior", circuit_slam, profile_density=True)
@@ -1927,10 +1952,11 @@ def circuit_posterior_phase(K, circuit_slam, circuit_seq):
           f"{rec['rhat_max']:.4f}, Laplace std of the last pose "
           f"{rec['laplace_std_last_pose']:.6f} (Monte Carlo quantities: printed, not held); "
           f"launches {launches}", flush=True)
-    smc_card_equals_cpu(smoother_phase(circuit_slam, circuit_seq))
+    poses0, graph, bogus, mask, bogus_res = smoother_phase(circuit_slam, circuit_seq)
+    smc_card_equals_cpu((poses0, bogus, mask))
     print(f"[circuit-posterior] {CARD}: the phase took {time.perf_counter() - t0:.1f} s",
           flush=True)
-    return launches
+    return launches, (poses0, graph, bogus, mask, bogus_res)
 
 
 # ---- solvers-batched -------------------------------------------------------
@@ -2020,19 +2046,19 @@ def cg_slice_phase(K, seq, tmp, dense_ate):
     return launches
 
 
-def _to_cpu(args):
-    """A solver call's arguments on the CPU (tensors and tuples of tensors;
-    the config as it is)."""
+def _cpu_tree(x):
+    """Tensors of nested dicts and (named) tuples, on the CPU."""
     import torch
 
-    def move(x):
-        if isinstance(x, torch.Tensor):
-            return x.cpu()
-        if isinstance(x, tuple) and not hasattr(x, "solver"):
-            return type(x)(*(move(y) for y in x))
-        return x
-
-    return tuple(move(a) for a in args)
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: _cpu_tree(v) for k, v in x.items()}
+    if hasattr(x, "_fields"):
+        return type(x)(*(_cpu_tree(v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_cpu_tree(v) for v in x)
+    return x
 
 
 def _solve_line(what, solver, res, s):
@@ -2097,7 +2123,7 @@ def cg_full_slice_phase(graph_cfg):
     what = f"full-slice ({graph[0].shape[0]} padded poses, dense)"
     ref, s_ref = _sync_s(lambda: optimize_graph_with_planes(*graph, cfg._replace(solver="dense")))
     _solve_line(what, "dense", ref, s_ref)
-    cpu_graph = _to_cpu(graph)
+    cpu_graph = _cpu_tree(graph)
     for cg_iters in (cfg.cg_iters, CG_CPU_STEPS):
         ccfg = cfg._replace(solver="cg", cg_iters=cg_iters)
         cg, s_cg = _sync_s(lambda: optimize_graph_with_planes(*graph, ccfg))
@@ -2575,6 +2601,335 @@ def tools_phase(K, tmp, cases):
     return launches, ties
 
 
+# ---- mesh ------------------------------------------------------------------
+
+MESH_WORLD = 4  # ranks that share the card over gloo: the multi-rank arithmetic
+MESH_SMC_PER_RANK, MESH_SMC_D, MESH_SMC_STD = 4096, 60, 0.1  # scripts/bench_scaling.py:66-80
+MESH_TIMEOUT = 480.0  # s for the spawned ranks; a rank still running then is killed
+# The sharded programs against their one-card forms, float64, at the
+# tolerances of tests/test_sharded_programs.py (:86-98, :141-144, :184-189):
+MESH_UGPM = (1e-3, 1e-7)  # cov rtol / atol x its scale; the deltas: UGPM_BATCH_RTOL
+MESH_GRAPH = (1e-7, 1e-9, 1e-7, 1e-6, 1e-8)  # poses rtol / atol, chi2 rtol, H rtol / atol
+# The graph solve runs the slam's 30 LM iterations in full in every form: past
+# the optimum (~20 iterations on the circuit) its stop rule (an accepted step
+# within rel_tol) is decided by the last bits of two chi2 sums, so the sharded
+# and one-card solves stop at different counts there (21 against 30 on an H100)
+MESH_GRAPH_CFG = dict(solver="dense", rel_tol=0.0)
+# ... loosened for float32 (the align pair and bench_scaling's SMC step run in
+# float32: a rounding is 6e-8 relative, and a sum over 69k points or 16k
+# particles reorders thousands of them):
+MESH_ALIGN = (1e-5, 1e-3, 1e-4)  # T entries abs (m / rotation), H rel, cost rel
+MESH_SMC = (1e-5, 1e-5)  # ESS and log weights rel; a comb point's tie window
+# the smoother: the card = CPU check's, relative to each field's largest value
+
+
+def _digests(x, name="out"):
+    """{name: sha256 of its bytes} of every tensor in nested dicts and
+    (named) tuples."""
+    import hashlib
+
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return {name: hashlib.sha256(x.detach().cpu().contiguous().numpy().tobytes()).hexdigest()}
+    items = (x.items() if isinstance(x, dict)
+             else zip(getattr(x, "_fields", range(len(x))), x))
+    return {k: v for key, y in items for k, v in _digests(y, f"{name}.{key}").items()}
+
+
+def _mesh_lp(x):
+    """bench_scaling.py's SMC target, N(0, I)."""
+    import torch
+
+    return -0.5 * torch.sum(x * x, dim=-1)
+
+
+def mesh_inputs(solve_cfg, circuit):
+    """The mesh programs' inputs on the CPU, as every rank receives them: the
+    align phase's pair as `cli align` downsamples it (0.1 m leaf), bench.py's
+    64 UGPM windows, the circuit's pose graph (361 keyframes, its 13 loops)
+    from the odometry poses with the slam's solve config, dense, its stop
+    rule off (`MESH_GRAPH_CFG`),
+    bench_scaling's SMC particles with a seeded uniform and normals, and
+    the smoother phase's graph with the JAX test's bogus loop (where it
+    resamples). `circuit` is what `smoother_phase` returns."""
+    import numpy as np
+    import torch
+
+    from gorio_tpu_torch.io.pcd import voxel_centroid_downsample
+
+    a, b, _, _ = synth_pair()
+    src, tgt = (voxel_centroid_downsample(x, 0.1) for x in (a, b))
+    rng = np.random.default_rng(0)
+    W, G, V, Q = UGPM_W, UGPM_G, UGPM_V, UGPM_Q
+    gyr_t, vel_t = (np.linspace(0, 1.0, n)[None].repeat(W, 0) for n in (G, V))
+    gyr, vel = rng.normal(scale=0.2, size=(W, G, 3)), rng.normal(scale=1.0, size=(W, V, 3))
+    ugpm = (gyr_t, gyr, vel_t, vel, np.full(W, 0.2), np.linspace(0.25, 0.75, Q)[None].repeat(W, 0))
+    n = MESH_SMC_PER_RANK * MESH_WORLD
+    gen = torch.Generator().manual_seed(0)
+    smc = (torch.as_tensor(rng.normal(size=(n, MESH_SMC_D)), dtype=torch.float32),
+           torch.zeros(n), torch.rand((), generator=gen),
+           torch.randn((n, MESH_SMC_D), generator=gen))
+    poses0, graph, bogus, mask, _ = circuit
+    return {"align": (src, tgt), "ugpm": ugpm,
+            "graph": (poses0.cpu(), _graph_on("cpu", graph),
+                      solve_cfg._replace(**MESH_GRAPH_CFG)),
+            "smc": smc, "smoother": (poses0.cpu(), _graph_on("cpu", bogus), mask)}
+
+
+def mesh_programs(dp, mp, inp, dev, smoother=True):
+    """The five sharded programs at full width (every rank calls it alike;
+    `dp` / `mp` None: the one-card programs; the smoother only with
+    `smoother`). Returns (outputs on the card, seconds per program, the card
+    synchronised and the ranks met before each)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from gorio_tpu_torch.core.pointcloud import make_cloud
+    from gorio_tpu_torch.graph.solver import optimize_graph
+    from gorio_tpu_torch.inference.smc import sharded_parents, sharded_smc_step
+    from gorio_tpu_torch.inference.smoother import smc_loop_relaxation
+    from gorio_tpu_torch.parallel.sharded import (sharded_gicp_align, sharded_optimize_graph,
+                                                  sharded_ugpm_windows)
+    from gorio_tpu_torch.preintegration.ugpm import UGPMConfig, ugpm_preintegrate
+    from gorio_tpu_torch.registration.gicp import GICPConfig, gicp_align
+
+    out, secs = {}, {}
+
+    def run(name, fn):
+        torch.cuda.synchronize(dev)
+        if dist.is_initialized():
+            dist.barrier()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize(dev)
+        secs[name] = time.perf_counter() - t0
+
+    cap = 1 << int(np.ceil(np.log2(max(len(x) for x in inp["align"]))))
+    src, tgt = (make_cloud(torch.as_tensor(x), capacity=cap, device=dev) for x in inp["align"])
+    cfg = GICPConfig(mode="apdgicp")
+    run("align", lambda: gicp_align(src, tgt, cfg=cfg) if mp is None
+        else sharded_gicp_align(mp, cfg, "mp")(src, tgt))
+    ug = [torch.as_tensor(x, dtype=torch.float64, device=dev) for x in inp["ugpm"]]
+    ucfg = UGPMConfig(window_duration=0.6, lm_iters=10)
+    run("ugpm", lambda: ugpm_preintegrate(*ug, 1e-4, 1e-3, ucfg) if dp is None
+        else sharded_ugpm_windows(dp, "dp")(*ug, 1e-4, 1e-3, ucfg))
+    poses0, graph, gcfg = inp["graph"]
+    poses0, graph = poses0.to(dev), _graph_on(dev, graph)
+    run("graph", lambda: optimize_graph(poses0, graph, gcfg) if dp is None
+        else sharded_optimize_graph(dp, gcfg, "dp")(poses0, graph))
+    p, lw, u, z = (t.to(dev) for t in inp["smc"])
+    step = sharded_smc_step(dp, _mesh_lp)
+    run("smc", lambda: (*step(p, lw, MESH_SMC_STD, u=u, z=z),
+                        *sharded_parents(dp, _mesh_lp, p, lw, u)))
+    if not smoother:
+        return out, secs
+    sp, sg, mask = inp["smoother"]
+    sp, sg = sp.to(dev), _graph_on(dev, sg)
+    run("smoother", lambda: smc_loop_relaxation(
+        dp, sp, sg, mask, n_particles=SMOOTHER_N, n_stages=SMOOTHER_STAGES,
+        n_moves=SMOOTHER_MOVES)(torch.Generator(device=dev).manual_seed(0)))
+    return out, secs
+
+
+def mesh_rank(inp, device):
+    """One rank of a spawned world: the five programs on flat "dp" and "mp"
+    meshes of the world. Every rank returns its outputs' digests, seconds,
+    launches and peak memory; rank 0 also its outputs."""
+    import torch
+    import torch.distributed as dist
+
+    from gorio_tpu_torch.ops import nn as K
+    from gorio_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    K.load_library()  # built by the parent
+    world = dist.get_world_size()
+    dp, mp = make_mesh((world,), ("dp",), device), make_mesh((world,), ("mp",), device)
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out, secs = mesh_programs(dp, mp, inp, dp.device)
+    res = {"digests": _digests(out), "secs": secs, "launches": dict(K.launch_counts),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "device": str(dp.device), "backend": dp.backend}
+    if dist.get_rank() == 0:
+        res["out"] = out  # `spawn` hands it back on the CPU
+    return res
+
+
+def _mesh_gap(a, b):
+    """Largest |a - b| over the largest |b| (at least 1)."""
+    return float((a.double().cpu() - b.double().cpu()).abs().max()
+                 / b.double().abs().max().clamp(min=1.0))
+
+
+def mesh_check(what, got, ref, tie_cum=None):
+    """Hold `got` (one world's outputs) to the one-card programs' `ref`;
+    prints the gaps and fails past a tolerance."""
+    import torch
+
+    def within(a, b, rtol, atol):
+        return bool(torch.all((a.double().cpu() - b.double().cpu()).abs()
+                              <= atol + rtol * b.double().cpu().abs()))
+
+    bad = []
+    a, r = got["align"], ref["align"]
+    t_gap = float((a.T.double().cpu() - r.T.double().cpu()).abs().max())
+    if int(a.iterations) != int(r.iterations):
+        bad.append(f"align iterations {int(a.iterations)} vs {int(r.iterations)}")
+    if not (t_gap <= MESH_ALIGN[0] and within(a.H, r.H, MESH_ALIGN[1], 0.0)
+            and within(a.error, r.error, MESH_ALIGN[2], 0.0)):
+        bad.append(f"align T {t_gap:.3g} apart, H / cost past {MESH_ALIGN[1:]}")
+    # UGPM's deltas: a rank's batch of W / world windows takes other batched
+    # kernels than the one card's W (2.41e-9 apart at world 4, 0 at world 1):
+    # held, as the batched phase holds a batch to its loop, within
+    # UGPM_BATCH_RTOL of each field's largest value (the JAX test's per-entry
+    # 1e-8 / 1e-10 is CPU XLA's, one window per device)
+    a, r = got["ugpm"], ref["ugpm"]
+    crt, cat = MESH_UGPM
+    scale = float(torch.diagonal(r.cov.double(), dim1=-2, dim2=-1).abs().max())
+    u_gap = _rel_gap((a.delta_p, a.delta_R), (r.delta_p, r.delta_R))
+    if not (u_gap <= UGPM_BATCH_RTOL and within(a.cov, r.cov, crt, cat * scale)):
+        bad.append(f"ugpm deltas {u_gap:.3g} apart")
+    a, r = got["graph"], ref["graph"]
+    prt, pat, crt, hrt, hat = MESH_GRAPH
+    if int(a.iterations) != int(r.iterations):
+        bad.append(f"graph iterations {int(a.iterations)} vs {int(r.iterations)}")
+    if not (within(a.poses, r.poses, prt, pat) and within(a.chi2, r.chi2, crt, 0.0)
+            and within(a.H, r.H, hrt, hat)):
+        bad.append(f"graph poses {_mesh_gap(a.poses, r.poses):.3g} apart, chi2 "
+                   f"{float(a.chi2)!r} vs {float(r.chi2)!r}")
+    (ap, aw, aess, apar, _), (rp, rw, ress, rpar, rcum) = got["smc"], ref["smc"]
+    n = rp.shape[0]
+    us = (float(ref["smc_u"]) + torch.arange(n, dtype=torch.float64)) / n
+    near = (rcum.double().cpu()[None, :] - us[:, None]).abs().min(dim=1).values <= MESH_SMC[1]
+    differ = apar.cpu() != rpar.cpu()
+    if bool((differ & ~near).any()):
+        bad.append(f"smc: {int((differ & ~near).sum())} parents differ off a tie")
+    same = ~differ
+    if not (within(aess, ress, MESH_SMC[0], 0.0) and within(aw, rw, MESH_SMC[0], MESH_SMC[0])
+            and torch.equal(ap.cpu()[same], rp.cpu()[same])):
+        bad.append("smc: ESS, log weights or particles past the limits")
+    a, r = got["smoother"], ref["smoother"]
+    s_gap = max(_mesh_gap(x, y) for x, y in zip(a, r))
+    rs_a, rs_r = resampled(a, SMOOTHER_N), resampled(r, SMOOTHER_N)
+    if not (s_gap <= CARD_CPU_TOL and rs_a == rs_r):
+        bad.append(f"smoother {s_gap:.3g} apart (resampled at {rs_a} vs {rs_r})")
+    print(f"[mesh] {what} against the one-card programs: align {int(got['align'].iterations)} "
+          f"LM iterations (one card {int(ref['align'].iterations)}), T {t_gap:.3g} apart; UGPM "
+          f"deltas {u_gap:.3g}; graph "
+          f"{int(got['graph'].iterations)} LM iterations, poses "
+          f"{_mesh_gap(got['graph'].poses, ref['graph'].poses):.3g}; SMC step ESS "
+          f"{float(aess):.2f} (one card {float(ress):.2f}), {int(differ.sum())} parents differ "
+          f"({int(near.sum())} comb points within {MESH_SMC[1]} of a cumulative weight); "
+          f"smoother {s_gap:.3g} (resampled at {rs_a}), log Z {float(a.log_evidence):.6f}",
+          flush=True)
+    if bad:
+        fail(f"mesh: {what}: " + "; ".join(bad))
+
+
+def _mesh_times(secs, iters):
+    return (f"align {secs['align']:.2f} s, UGPM {secs['ugpm']:.2f} s, graph {secs['graph']:.2f} s "
+            f"({1e3 * secs['graph'] / max(iters, 1):.2f} ms per LM iteration), SMC step "
+            f"{1e3 * secs['smc']:.2f} ms, smoother {secs['smoother']:.2f} s")
+
+
+def mesh_phase(K, tmp, solve_cfg, circuit):
+    """The sharded programs (`parallel/`) at full width: through NCCL at
+    world 1 in this process (the dry run at its own sizes, then the five
+    programs), then as MESH_WORLD ranks sharing the card over gloo; each
+    against the one-card programs on the same inputs, the ranks' outputs
+    equal to the bit. NCCL at world > 1 where the machine has more cards.
+    Returns the mesh path's kernel launches (world 1 and every rank)."""
+    import torch
+    import torch.distributed as dist
+
+    from gorio_tpu_torch.parallel.dryrun import dryrun_multichip
+    from gorio_tpu_torch.parallel.mesh import initialize_distributed, make_mesh, spawn
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    inp = mesh_inputs(solve_cfg, circuit)
+    ref, ref_secs = mesh_programs(None, None, inp, dev, smoother=False)
+    ref["smoother"] = circuit[4]  # the smoother phase's run, on the same draws
+    ref["smc_u"] = inp["smc"][2]
+    ref_secs["smoother"] = float("nan")
+    print(f"[mesh] {CARD}: one card: "
+          f"{_mesh_times(ref_secs, int(ref['graph'].iterations))} (the smoother: the smoother "
+          f"phase's run)", flush=True)
+
+    # (a) NCCL at world 1, in this process
+    rank, world = initialize_distributed(f"file://{tmp / 'nccl-world1'}", 1, 0, device=dev)
+    try:
+        mesh = make_mesh((1, 1), ("dp", "mp"), dev)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        dry = dryrun_multichip(mesh)
+        torch.cuda.synchronize()
+        dry_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        one, secs = mesh_programs(make_mesh((1,), ("dp",), dev), make_mesh((1,), ("mp",), dev),
+                                  inp, mesh.device)
+        peak1 = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = dict(K.launch_counts)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    print(f"[mesh] {CARD}: {backend} world {world}: dry run (UGPM {dry['ugpm'].delta_p.shape[0]} "
+          f"windows, APDGICP {int(dry['gicp'].iterations)} LM iterations, graph chi2 "
+          f"{float(dry['graph'].chi2):.3g}, SMC ESS {float(dry['smc'][2]):.2f}) in {dry_s:.2f} "
+          f"s; {_mesh_times(secs, int(one['graph'].iterations))}; peak "
+          f"{peak1:.2f} GiB; launches {launches}", flush=True)
+    one["smc_u"] = inp["smc"][2]
+    mesh_check(f"{backend} world 1", one, ref)
+    del one, dry
+    torch.cuda.empty_cache()
+
+    # (b) MESH_WORLD ranks on this card over gloo: the multi-rank arithmetic
+    t0 = time.perf_counter()
+    ranks = spawn(mesh_rank, MESH_WORLD, inp, "cuda:0", device="cuda:0", backend="gloo",
+                  timeout=MESH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    four = ranks[0]["out"]
+    d0 = ranks[0]["digests"]
+    differ = {r: sorted(k for k, v in ranks[r]["digests"].items() if d0.get(k) != v)
+              for r in range(1, MESH_WORLD) if ranks[r]["digests"] != d0}
+    per_rank = [r["launches"] for r in ranks]
+    print(f"[mesh] {CARD}: gloo world {MESH_WORLD} on {ranks[0]['device']} (ranks sharing the "
+          f"card: the multi-rank arithmetic, not a speed reading), spawned and run in "
+          f"{wall:.2f} s; rank 0: {_mesh_times(ranks[0]['secs'], int(four['graph'].iterations))}; "
+          f"gorio_nn1 launches per rank {[c['nn1'] for c in per_rank]}; peak per rank "
+          f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; {len(ranks[0]['digests'])} outputs "
+          f"{'equal to the bit on every rank' if not differ else f'DIFFER: {differ}'}",
+          flush=True)
+    if differ:
+        fail(f"mesh: outputs differ from rank 0's (rank: names) {differ}")
+    if not all(c["nn1"] > 0 for c in per_rank):
+        fail(f"mesh: gorio_nn1 not launched on every rank ({per_rank})")
+    four["smc_u"] = inp["smc"][2]
+    mesh_check(f"gloo world {MESH_WORLD}", four, ref)
+    for counts in per_rank:
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        n = min(MESH_WORLD, n_cards)
+        ranks = spawn(mesh_rank, n, inp, "cuda", device="cuda", timeout=MESH_TIMEOUT)
+        mesh_check(f"nccl world {n}", ranks[0]["out"] | {"smc_u": inp["smc"][2]}, ref)
+        for counts in (r["launches"] for r in ranks):
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+    else:
+        print(f"[mesh] NCCL at world > 1 did not run: this machine has {n_cards} card",
+              flush=True)
+    print(f"[mesh] {CARD}: the phase took {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{launches}", flush=True)
+    return launches
+
+
 # ---- lanes -----------------------------------------------------------------
 
 # The phases of the two circuit runs go in child processes of their own
@@ -2632,14 +2987,16 @@ def wait_simulation(tmp, what):
 
 
 def circuit_lane(K, tmp):
-    """The circuit's `slam`, its posterior and smoother, and CG on its final
-    graph."""
+    """The circuit's `slam`, its posterior and smoother, CG on its final
+    graph, and the mesh phase on the circuit's graphs."""
     seq = tmp / "circuit"
     wait_simulation(tmp, "circuit")
     launches = {}
     launches["circuit"], slam, graph = timed("circuit", circuit_phase, K, seq, tmp)
-    launches["posterior"] = timed("circuit-posterior", circuit_posterior_phase, K, slam, seq)
+    launches["posterior"], circuit = timed("circuit-posterior", circuit_posterior_phase, K,
+                                           slam, seq)
     timed("cg-graphs circuit", cg_graph_phase, "circuit", graph)
+    launches["mesh"] = timed("mesh", mesh_phase, K, tmp, slam.cfg.solve, circuit)
     return launches
 
 

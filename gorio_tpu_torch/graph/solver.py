@@ -280,6 +280,14 @@ def _solve(H, b, lam, cfg: SolveConfig):
 def optimize_graph(poses0, graph: GraphData, cfg: SolveConfig = SolveConfig()) -> SolveResult:
     """LM optimization; the gauge is fixed by the anchor prior or, with
     cfg.fix_first, by freezing pose 0."""
+    return lm_graph(poses0, lambda p: build_normal_equations(p, graph),
+                    lambda p: graph_chi2(p, graph), cfg)
+
+
+def lm_graph(poses0, normal_equations, chi2_of, cfg: SolveConfig) -> SolveResult:
+    """`optimize_graph`'s LM loop over callables: normal_equations(poses) ->
+    (Hb (K, K, 6, 6), bb (K, 6), chi2) and chi2_of(poses) -> chi2. The
+    factor-sharded solve (`parallel/sharded.py`) hands it all-reduced ones."""
     K = poses0.shape[0]
     dtype, device = poses0.dtype, poses0.device
     free = torch.ones((K, 6), dtype=dtype, device=device)
@@ -293,13 +301,13 @@ def optimize_graph(poses0, graph: GraphData, cfg: SolveConfig = SolveConfig()) -
     H = torch.eye(K * 6, dtype=dtype, device=device)
     it, done = 0, False
     while it < cfg.max_iterations and not done:
-        Hb, bb, chi2 = build_normal_equations(poses, graph)
+        Hb, bb, chi2 = normal_equations(poses)
         # gauge fixing: zero rows/cols of fixed vars, unit diagonal
         H = _flatten_H(Hb) * free_flat[:, None] * free_flat[None, :] + torch.diag(1.0 - free_flat)
         b = bb.reshape(-1) * free_flat
         delta = _solve(H, b, lam, cfg) * free_flat
         poses_new = retract(poses, delta.reshape(K, 6))
-        chi2_new = graph_chi2(poses_new, graph)
+        chi2_new = chi2_of(poses_new)
         accept = chi2_new < chi2
         poses = torch.where(accept, poses_new, poses)
         lam = torch.where(accept, lam / cfg.lm_lambda_factor, lam * cfg.lm_lambda_factor)

@@ -15,8 +15,10 @@ the annealed-SMC estimate of log Z, the evidence for the loop closures
 
 The particles live on the card as (N, 6K), each density pass over all of
 them at once (10,240 particles over a 361-pose circuit peak at ~15 GiB).
-One card runs the whole particle set (`mesh=None`); the mesh form belongs
-to ROADMAP A15.
+One card runs the whole particle set (`mesh=None`), or the particles are
+split over the `dp` axis of a `parallel.Mesh` of ranks: the normalisation,
+the ESS, the evidence, the resampling ancestry, the posterior mean and the
+acceptance then go through the axis's collectives.
 """
 
 from __future__ import annotations
@@ -28,8 +30,9 @@ import torch
 
 from ..graph.factors import GraphData, retract
 from ..graph.solver import _flatten_H, build_normal_equations, f32_matmuls, graph_chi2, live_graph
+from ..parallel.mesh import cumsum_rows, gather_rows, psum, shard_rows
 from .hmc import value_and_grad
-from .smc import MESH_REFUSED, normalise, parents
+from .smc import normalise, parents
 
 
 class SmootherResult(NamedTuple):
@@ -92,7 +95,8 @@ def _mala_move(delta, chi2_fn, beta, step, mass, *, z, log_u):
 
 def smc_loop_relaxation(mesh, poses0, graph: GraphData, loop_mask, *, n_particles: int,
                         n_stages: int = 8, n_moves: int = 2, init_std: float = 1.0,
-                        mala_step: float = 0.5, ess_threshold: float = 0.5):
+                        mala_step: float = 0.5, ess_threshold: float = 0.5,
+                        axis: str = "dp"):
     """Build the relaxation: returns run(generator=None) -> SmootherResult.
 
     log Z accumulates each stage's log-sum of the incremental weights (the
@@ -102,16 +106,27 @@ def smc_loop_relaxation(mesh, poses0, graph: GraphData, loop_mask, *, n_particle
     graph's Gauss-Newton diagonal at delta = 0 (the anchor and odometry
     directions are orders of magnitude stiffer than the loop-error ones).
 
-    `mesh` must be None (one card). The draws, made from `generator` on the
-    poses' device: the initial cloud's normals (N, 6K), one resampling
-    uniform per stage, and per stage and move the MALA proposals' normals
-    (N, 6K) and the accept uniforms (N,)."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_REFUSED)
+    The draws, made from `generator` on the poses' device: the initial
+    cloud's normals (N, 6K), one resampling uniform per stage, and per stage
+    and move the MALA proposals' normals (N, 6K) and the accept uniforms
+    (N,).
+
+    With a `mesh`, every rank runs `run` with the same arguments (the
+    global draws, or the same generator state) on the same inputs, and
+    moves its own rows of the particles (N must divide by the axis size):
+    the normalisation, the ESS and log Z over all of them (pmax / psum),
+    the parents against the global cumulative weights (`cumsum_rows`; the particles
+    are gathered at a stage that resamples: the host reads the replicated
+    decision), the posterior mean and the acceptance all-reduced. Every
+    rank returns the whole result: the particles and log weights gathered,
+    the rest replicated. On the same draws it is the one-card run up to the
+    order of the reductions."""
     K = poses0.shape[0]
     D = K * 6
     like = dict(dtype=poses0.dtype, device=poses0.device)
     N = n_particles
+    rows = shard_rows(mesh, N, axis)
+    n_dev = 1 if mesh is None else mesh.shape[axis]
     chi2_fn = split_loop_chi2(poses0, graph, loop_mask)
     betas = torch.linspace(0.0, 1.0, n_stages + 1, **like)
     # diagonal GN preconditioner of the base graph at delta = 0: the initial
@@ -120,35 +135,41 @@ def smc_loop_relaxation(mesh, poses0, graph: GraphData, loop_mask, *, n_particle
     mass = 1.0 / (torch.diagonal(_flatten_H(Hb)) + 1.0)
 
     def core(init_z, u0, move_z, log_u) -> SmootherResult:
-        particles = (init_std * torch.sqrt(mass))[None, :] * init_z
-        log_w = torch.full((N,), -math.log(1.0 * N), **like)
+        particles = (init_std * torch.sqrt(mass))[None, :] * init_z[rows]
+        log_w = torch.full((rows.stop - rows.start,), -math.log(1.0 * N), **like)
         log_z = torch.zeros((), **like)
         ess_hist, acc_hist = [], []
         for s in range(n_stages):
             # reweight by the incremental loop likelihood
             c_loop = chi2_fn(particles)[1]
             lw = log_w + -0.5 * (betas[s + 1] - betas[s]) * c_loop
-            lw_norm, log_sum = normalise(lw)
+            lw_norm, log_sum = normalise(lw, mesh, axis)
             log_z = log_z + log_sum  # the previous weights sum to 1
-            ess = 1.0 / torch.sum(torch.exp(2.0 * lw_norm))
+            ess = 1.0 / psum(mesh, torch.sum(torch.exp(2.0 * lw_norm)), axis)
             # systematic resampling against the global cumulative weights
             do_rs = ess < ess_threshold * N
-            idx = parents(torch.cumsum(torch.exp(lw_norm), dim=0), u0[s], N)
-            particles = torch.where(do_rs, particles[idx], particles)
+            idx = parents(cumsum_rows(mesh, torch.exp(lw_norm), axis), u0[s], N, rows)
+            if mesh is None:
+                particles = torch.where(do_rs, particles[idx], particles)
+            elif bool(do_rs):  # replicated: every rank takes the same branch
+                particles = gather_rows(mesh, particles, axis)[idx]
             log_w = torch.where(do_rs, torch.full_like(lw_norm, -math.log(1.0 * N)), lw_norm)
             # MALA moves at the new temperature
             acc = torch.zeros((), **like)
             for m in range(n_moves):
                 particles, accepted = _mala_move(particles, chi2_fn, betas[s + 1], mala_step,
-                                                 mass, z=move_z[s, m], log_u=log_u[s, m])
+                                                 mass, z=move_z[s, m][rows],
+                                                 log_u=log_u[s, m][rows])
                 acc = acc + torch.mean(accepted.to(poses0.dtype))
             ess_hist.append(ess)
             acc_hist.append(acc / n_moves)
-        mean = torch.sum(particles * torch.exp(log_w)[:, None], dim=0)
+        mean = psum(mesh, torch.sum(particles * torch.exp(log_w)[:, None], dim=0), axis)
         return SmootherResult(
-            particles=particles, log_weights=log_w, mean_delta=mean,
+            particles=gather_rows(mesh, particles, axis),
+            log_weights=gather_rows(mesh, log_w, axis), mean_delta=mean,
             poses_mean=retract(poses0, mean.reshape(K, 6)), log_evidence=log_z,
-            ess_per_stage=torch.stack(ess_hist), accept_rate=torch.mean(torch.stack(acc_hist)))
+            ess_per_stage=torch.stack(ess_hist),
+            accept_rate=psum(mesh, torch.mean(torch.stack(acc_hist)), axis) / n_dev)
 
     def run(generator=None, *, draws=None) -> SmootherResult:
         """`draws` = (init_z (N, 6K), u0 (S,), move_z (S, n_moves, N, 6K),

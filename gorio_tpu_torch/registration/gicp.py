@@ -49,13 +49,17 @@ class GICPConfig(NamedTuple):
     rbf_max_dist: float = 3.0
 
 
-def knn_covariances(xyz, mask, k: int = 20, plane_eps: float = 1e-3, block: int = 512):
+def knn_covariances(xyz, mask, k: int = 20, plane_eps: float = 1e-3, block: int = 512,
+                    query=None):
     """Per-point neighbourhood covariances with PLANE regularization
     (`fast_apdgicp_impl.hpp:351-411`): kNN -> covariance -> spectrum clamped
     to (eps, 1, 1) in the eigenbasis. xyz ([B,] N, 3) -> (cov ([B,] N, 3, 3),
     geo_w ([B,] N)). The kNN is blocked over queries: a block holds
-    (B, block, N) distances, never (B, N, N)."""
-    idx, _ = knn(xyz, xyz, k, ref_mask=mask, block=block)
+    (B, block, N) distances, never (B, N, N). `query` ([B,] Q, 3), a slice
+    of the cloud's rows, gives those rows' covariances (Q of them) with
+    their neighbours taken among all of xyz: a shard's rows, as the whole
+    cloud's call gives them."""
+    idx, _ = knn(xyz if query is None else query, xyz, k, ref_mask=mask, block=block)
     neigh = _take(xyz, idx, batched=xyz.dim() == 3)  # ([B,] N, k, 3)
     centered = neigh - torch.mean(neigh, dim=-2, keepdim=True)
     cov = torch.einsum("...nki,...nkj->...nij", centered, centered) / k
@@ -169,9 +173,11 @@ def _transform(xyz, T):
     return xyz.to(dtype) @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3], T
 
 
-def _correspondences(prob: GICPProblem, T, cfg: GICPConfig):
+def _correspondences(prob: GICPProblem, T, cfg: GICPConfig, n_total: int | None = None):
     """1-NN (`nn1_best`) + Mahalanobis; `update_correspondences`
-    (`fast_apdgicp_impl.hpp:160-220`). One pair (no batch axis)."""
+    (`fast_apdgicp_impl.hpp:160-220`). One pair (no batch axis). `n_total`
+    is the whole source capacity where `prob` holds a shard of the source
+    (`parallel/sharded.py`): the cluster bonus's denominator (`_weights`)."""
     moved, T = _transform(prob.src_xyz, T)
     R = T[:3, :3]
     idx, sqd = nn1_best(moved, prob.tgt_xyz, ref_mask=prob.tgt_mask)
@@ -184,17 +190,18 @@ def _correspondences(prob: GICPProblem, T, cfg: GICPConfig):
         cov_A = cov_A + cov_d
         cov_B = cov_B + cov_d
     mah = inv3(cov_B + R @ cov_A @ R.T)
-    w = _weights(prob, cfg, prob.tgt_cluster[idx])
+    w = _weights(prob, cfg, prob.tgt_cluster[idx], n_total)
     return idx, ok, mah, w, moved
 
 
-def _weights(prob: GICPProblem, cfg: GICPConfig, matched_cluster):
+def _weights(prob: GICPProblem, cfg: GICPConfig, matched_cluster, n_total: int | None = None):
     """Cost weights (`fast_apdgicp_impl.hpp:264-276`): 1 + geo + cluster
-    bonus for APDGICP; plain FastGICP/ICP cost is unweighted."""
+    bonus for APDGICP; plain FastGICP/ICP cost is unweighted. The bonus is
+    1 / the source capacity: `n_total` where `prob` holds a shard of it."""
     if cfg.mode != "apdgicp":
         return torch.ones_like(prob.src_geo_w)
     same = (matched_cluster == prob.src_cluster) & (prob.src_cluster >= 0.0)
-    n = prob.src_xyz.shape[-2]
+    n = prob.src_xyz.shape[-2] if n_total is None else n_total
     cl_w = torch.where(same, 1.0 / n, 0.0).to(prob.src_geo_w.dtype)
     return 1.0 + prob.src_geo_w + cl_w
 
@@ -359,12 +366,18 @@ def make_gicp_callbacks(prob: GICPProblem, cfg: GICPConfig):
     return linearize, compute_error
 
 
-def make_gicp_callbacks_reference(prob: GICPProblem, cfg: GICPConfig):
+def make_gicp_callbacks_reference(prob: GICPProblem, cfg: GICPConfig,
+                                  n_total: int | None = None, reduce=None):
     """The straightforward (N, 3, 3) einsum formulation over `nn1_best`
-    correspondences: the equality reference for the component form."""
+    correspondences: the equality reference for the component form.
+
+    With `prob` a shard of the source points, `n_total` the whole capacity
+    and `reduce` a sum over the shards, it is the sharded linearization
+    (`parallel/sharded.py`): cost, H and b summed in one reduction, the
+    cost of `compute_error` in another."""
 
     def linearize(T):
-        idx, ok, mah, w, _ = _correspondences(prob, T, cfg)
+        idx, ok, mah, w, _ = _correspondences(prob, T, cfg, n_total)
         moved, err, m_err, cost = _error_terms(prob, T, idx, ok, mah, w)
         # J (3x6) rows: d(err)/d[d_rot, d_trans] = [skew(moved), -I]
         sk = lie.hat(moved)
@@ -375,11 +388,15 @@ def make_gicp_callbacks_reference(prob: GICPProblem, cfg: GICPConfig):
         H = torch.cat([torch.cat([H_rr, H_rt], 1), torch.cat([H_rt.T, H_tt], 1)], 0)
         b = torch.cat([torch.einsum("nji,nj,n->i", sk, m_err, okf),
                        -torch.einsum("ni,n->i", m_err, okf)])
+        if reduce is not None:
+            s = reduce(torch.cat([cost[None], H.reshape(-1), b]))
+            cost, H, b = s[0], s[1:37].reshape(6, 6), s[37:]
         return cost, H, b, (idx, ok, mah, w)
 
     def compute_error(T, aux):
         idx, ok, mah, w = aux
-        return _error_terms(prob, T, idx, ok, mah, w)[3]
+        cost = _error_terms(prob, T, idx, ok, mah, w)[3]
+        return cost if reduce is None else reduce(cost)
 
     return linearize, compute_error
 

@@ -32,6 +32,7 @@ from gorio_tpu_torch.graph.solver import SolveConfig, laplace_covariance, optimi
 from gorio_tpu_torch.inference import hmc as th
 from gorio_tpu_torch.inference import laplace as tl
 from gorio_tpu_torch.inference import smc as tsmc
+from gorio_tpu_torch.parallel.mesh import make_mesh
 from test_graph import _chain_truth, _rel
 
 F64 = jnp.float64
@@ -387,7 +388,9 @@ def test_smc_step_matches_jax():
 
 def test_sharded_smc_step_matches_jax_on_one_shard():
     """The JAX sharded step on a one-device mesh against the port's
-    `mesh=None` step: global normalisation, -log N after a resample."""
+    `mesh=None` step: global normalisation, -log N after a resample. The
+    port's mesh of one rank gives the `mesh=None` step to the bit (the
+    mesh of four ranks: `test_torch_parallel_inference.py`)."""
     jlp, tlp = _smc_target()
     mesh = Mesh(np.asarray(jax.devices()[:1]), ("dp",))
     jstep = jax.jit(jsmc.sharded_smc_step(mesh, jlp))
@@ -402,12 +405,13 @@ def test_sharded_smc_step_matches_jax_on_one_shard():
         u = jax.random.uniform(k_r, (), F64)
         z = jax.random.normal(jax.random.fold_in(k_m, 0), (N, 2), F64)
         jp, jw, jess = jstep(key, jp, jw, jnp.asarray(0.05))
+        one = tsmc.sharded_smc_step(make_mesh((1,), ("dp",), "cpu"), tlp)(
+            tp, tw, 0.05, u=t(u), z=t(z))
         tp, tw, tess = tstep(tp, tw, 0.05, u=t(u), z=t(z))
+        assert all(torch.equal(a, b) for a, b in zip(one, (tp, tw, tess)))
         close(tess, jess, rtol=1e-10)
         close(tp, jp, atol=1e-10)
         close(tw, jw, rtol=1e-10, atol=1e-10)
-    with pytest.raises(NotImplementedError, match="A15"):
-        tsmc.sharded_smc_step(mesh, tlp)
 
 
 # ---- the card --------------------------------------------------------------

@@ -36,6 +36,7 @@ from gorio_tpu.io.synthetic import make_world, render_radar_scan, sample_imu, si
 from gorio_tpu.pipeline import slam as jslam
 from gorio_tpu_torch.convert import cloud_from_numpy, config_from_dict, graph_from_numpy
 from gorio_tpu_torch.inference import smoother as ts
+from gorio_tpu_torch.parallel.mesh import make_mesh
 from gorio_tpu_torch.pipeline import slam as tslam
 from test_smoother import _ate, _square_graph
 from test_torch_inference import F64, close, run_hmc_draws, t
@@ -122,8 +123,11 @@ def test_smc_loop_relaxation_matches_jax(square, monkeypatch):
     assert 0.0 < float(tres.accept_rate) < 1.0
     # the run covers a resample (ESS below N / 2 at a stage)
     assert bool((tres.ess_per_stage < 0.5 * N).any())
-    with pytest.raises(NotImplementedError, match="A15"):
-        ts.smc_loop_relaxation(mesh, t(poses0), tdata, loop_mask, n_particles=N)
+    # the port's mesh of one rank is the one-card run, to the bit (four
+    # ranks: `test_torch_parallel_inference.py`)
+    one = ts.smc_loop_relaxation(make_mesh((1,), ("dp",), "cpu"), t(poses0), tdata, loop_mask,
+                                 n_particles=N, n_stages=S, n_moves=M)(draws=draws)
+    assert all(torch.equal(a, b) for a, b in zip(one, tres))
 
 
 def test_loop_evidence_gate_rejects_bogus_loop(square):
