@@ -118,9 +118,8 @@ Phases, one line each (more for the tables):
                unless each recovers the known transform within 0.05 m and
                1 deg, except NDT_CUDA_D2D, whose JAX CPU run misses them and
                which is held to that run's errors plus the same margins.
-               Then NDT DIRECT7 per-align ms on the same pair with the maps
-               prebuilt, single-resolution and coarse-to-fine (`bench.py`'s
-               protocol).
+               (The NDT readings of `bench.py`'s protocol on the same pair
+               are the bench phase's, 17.)
   11. stream — `python -m gorio_tpu_torch.cli stream` on the 98 frames, after
                its warm-up: `--mode block --rate-multiplier 1` (the sensor's
                5 Hz) with `--output`, then `--mode drop --rate-multiplier 4`
@@ -155,13 +154,8 @@ Phases, one line each (more for the tables):
                time of one eager density value and gradient (profiler),
                whose CUDA graph replay must equal it within 1e-10, and
                the JAX package's CPU f64 record (`CIRCUIT_POSTERIOR_JAX`,
-               not held). bench-posterior: `bench.py`'s 50-keyframe
-               loop-closed f32 posterior, the whitened quality pass (16
-               chains x 512 draws, step 0.12, adapt off, from its
-               1.5-sigma inits; fails unless the mean acceptance is > 0.5,
-               which a TF32 leak collapses) with ESS/s and R-hat on the
-               [R, t] embedding, and its unwhitened samples/s (16 chains x
-               64 draws x 3 repetitions). smoother:
+               not held). (`bench.py`'s 50-keyframe posteriors are the
+               bench phase's, 17.) smoother:
                `smc_loop_relaxation(None, ...)` over the circuit's
                keyframes (odometry, preintegration and anchor factors
                around the odometry poses, the accepted loops tempered in)
@@ -205,17 +199,10 @@ Phases, one line each (more for the tables):
                printed, with its gap to the port's CPU run of the same solve;
                capped at 20 CG steps (before an unconverged CG's late steps
                amplify rounding) it must equal the CPU run within 1e-6
-               relative and 1e-6 m. batched: bench.py's
-               batched workloads as single batched calls, each against a
-               loop of single calls on the same inputs (1e-9 relative in
-               f64, 1e-5 in f32; UGPM 1e-8, its LM's own noise floor being
-               ~1e-9), with their rates: ego velocity over 64
-               scans of 1,024 points (scans/s; the masks must be equal),
-               UGPM fit and query over 64 windows of G = 128, V = 32 (10 LM
-               iterations; windows/s), NDT DIRECT7 coarse-to-fine over 8
-               jittered sources against the align phase's maps (aligns/s;
-               the same outer iterations per lane). gn: `gn_optimize` on
-               APDGICP's callbacks for slice frames 40 and 41, 8 iterations:
+               relative and 1e-6 m. (`bench.py`'s batched workloads
+               against their loops are the bench phase's, 17.) gn:
+               `gn_optimize` on APDGICP's callbacks for slice frames 40 and
+               41, 8 iterations:
                `nn1_select` must launch 8 times and T equal the CPU run's
                within 1e-6. preint: `preintegrate` over the JAX test's 4 s
                window, `quantum=1.0` against one window, LPM (within 2e-3
@@ -294,13 +281,40 @@ Phases, one line each (more for the tables):
                ms per LM iteration of the graph at world 1 and 4, launches
                per rank, peak memory per rank and the phase's wall; its
                launches (world 1 and every rank) are the "mesh" path.
+  17. bench  — `gorio_tpu_torch/bench.py` (`cli bench`'s workloads) at full
+               width with `BENCH_COUNTS`, bench.py's repetition counts cut to
+               fit: the 69,000-point `synth_pair` (NDT DIRECT7 single-
+               resolution, its synchronised median, coarse-to-fine, DIRECT1,
+               the map build, 8 jittered sources batched, fitness and the
+               known-pose recovery), APDGICP on 4096-point `random_cloud`s
+               and its NN / linearize split, ego velocity over 64 scans, 64
+               UGPM windows, HMC (16 chains x 64 draws; the whitened
+               quality passes, 16 chains x 512 draws, quadratic and Huber
+               loops), the sparse solves at K = 256 and 1024 (float64) and
+               8 batched verification aligns. Prints its JSON line tagged
+               `[bench]`; fails on a missing key or a non-finite reading, a
+               known-pose error over 5 cm / 1 deg (bench.py:360), `fitness`
+               not below `fitness_identity`, `hmc_accept_mean` <= 0.5
+               (which a TF32 leak collapses), or no launch of either
+               kernel. Then bench.py's batched workloads as single batched
+               calls, each against a loop of single calls on the same inputs
+               (1e-9 relative in f64, 1e-5 in f32; UGPM 1e-8, its LM's own
+               noise floor being ~1e-9), with their rates: ego velocity over
+               64 rendered radar scans of 1,024 points (scans/s; the masks
+               must be equal), UGPM fit and query over 64 windows of G =
+               128, V = 32 (10 LM iterations; windows/s), NDT DIRECT7
+               coarse-to-fine over the 8 jittered sources against the
+               phase's maps (aligns/s; the same outer iterations per lane).
+               Its launches are the "bench" path. It runs first in the
+               full-circuit lane, while the circuit is simulated.
 The two sequences are simulated in child processes started at the beginning,
 beside the build and the kernel phase. Once the kernel phase has taken its
 times alone on the card, two lanes start, each a child process of this
 script (`--lane NAME`) that waits for the circuit's simulation: `circuit`
 runs phase 5, the circuit's part of phase 12 (its `sample_posterior`, the
 smoother, `smc_loop_relaxation` on the card against the CPU), CG on its
-graph (phase 13) and the mesh phase (16); `full-circuit` runs phase 7 and CG on its graph. The
+graph (phase 13) and the mesh phase (16); `full-circuit` runs the bench
+phase (17), then phase 7 and CG on its graph. The
 other phases run here meanwhile; the host threads and the card are shared,
 so each phase's wall clock includes the others' load. A lane's output is
 printed when it ends, and its failure fails the script. Each phase prints
@@ -685,11 +699,12 @@ def align_inputs(g):
     columns, cluster and mask."""
     import torch
 
+    from gorio_tpu_torch.bench import synth_pair
     from gorio_tpu_torch.core.pointcloud import make_cloud
     from gorio_tpu_torch.io.pcd import voxel_centroid_downsample
 
     dev = torch.device("cuda")
-    a, b, _, _ = synth_pair()
+    (a, _), (b, _) = synth_pair()
     src, tgt = (make_cloud(torch.as_tensor(voxel_centroid_downsample(x, res=0.1)),
                            capacity=ALIGN_CAP, device=dev) for x in (a, b))
     cov6 = torch.randn(ALIGN_CAP, 6, generator=g, device=dev)
@@ -1398,42 +1413,17 @@ def stream_phase(K, seq, tmp, slice_keyframes):
     return launches
 
 
-def synth_pair(n=69000, seed=0):
-    """`bench.py`'s synthetic pair at the benchmark scans' scale (~70k
-    points, ~100 m scene): b = T a + 2 cm noise with T a z-rotation of 0.02
-    rad and [0.3, 0.1, 0] m. Returns (a, b, intensity, T)."""
-    import numpy as np
-    from scipy.spatial.transform import Rotation
-
-    rng = np.random.default_rng(seed)
-    n_ground = n // 2
-    gx = rng.uniform(-50, 50, size=(n_ground, 2))
-    ground = np.concatenate([gx, -1.8 + 0.05 * rng.normal(size=(n_ground, 1))], axis=1)
-    centers = rng.uniform(-50, 50, size=(60, 3))
-    centers[:, 2] = np.abs(centers[:, 2]) * 0.2
-    assign = rng.integers(0, 60, size=n - n_ground)
-    local = rng.normal(size=(n - n_ground, 3)) * np.array([4.0, 0.2, 2.0])
-    a = np.concatenate([ground, centers[assign] + local]).astype(np.float32)
-    T = np.eye(4, dtype=np.float32)
-    T[:3, :3] = Rotation.from_euler("z", 0.02).as_matrix()
-    T[:3, 3] = [0.3, 0.1, 0.0]
-    b = (a @ T[:3, :3].T + T[:3, 3]) + rng.normal(scale=0.02, size=a.shape).astype(np.float32)
-    inten = (10 + 20 * rng.random(n)).astype(np.float32)
-    return a, b, inten, T.astype(np.float64)
-
-
 def align_phase(K, tmp):
-    """The align CLI on the synthetic pair, then the bench's NDT readings."""
+    """The align CLI on `bench.py`'s synthetic pair (its NDT readings are the
+    bench phase's)."""
     import numpy as np
-    import torch
 
+    from gorio_tpu_torch.bench import synth_pair, synth_transform
     from gorio_tpu_torch.cli import main as cli
-    from gorio_tpu_torch.core.pointcloud import make_cloud
-    from gorio_tpu_torch.io.pcd import read_pcd, voxel_centroid_downsample, write_pcd
-    from gorio_tpu_torch.registration.ndt import (
-        NDTConfig, build_voxel_map, coarse_cfg, ndt_align_multires, ndt_align_with_map)
+    from gorio_tpu_torch.io.pcd import write_pcd
 
-    a, b, inten, T_true = synth_pair()
+    (a, inten), (b, _) = synth_pair()
+    T_true = synth_transform().astype(np.float64)
     write_pcd(tmp / "tgt.pcd", b, inten)
     write_pcd(tmp / "src.pcd", a, inten)
     K.reset_launch_counts()
@@ -1461,26 +1451,7 @@ def align_phase(K, tmp):
     if bad:
         fail(f"align: {bad} miss the known transform")
 
-    # bench.py's headline protocol: target a, source b, 0.1 m leaf, float32,
-    # DIRECT7 at 1.0 m with 32768 voxels, maps prebuilt, from the identity
-    dev = torch.device("cuda")
-    tgt_d, src_d = (voxel_centroid_downsample(read_pcd(tmp / f)[0], 0.1)
-                    for f in ("src.pcd", "tgt.pcd"))
-    cap = 1 << int(np.ceil(np.log2(max(len(tgt_d), len(src_d)))))
-    target, source = (make_cloud(torch.as_tensor(x), capacity=cap, device=dev)
-                      for x in (tgt_d, src_d))
-    cfg = NDTConfig(resolution=1.0, neighborhood="direct7", voxel_capacity=32768)
-    vmap_t, vmap_c = build_voxel_map(target, cfg), build_voxel_map(target, coarse_cfg(cfg))
-    eye = torch.eye(4, device=dev)
-    for name, fn in (("single-resolution", lambda: ndt_align_with_map(source, vmap_t, eye, cfg)),
-                     ("coarse-to-fine", lambda: ndt_align_multires(source, vmap_c, vmap_t, eye,
-                                                                    cfg))):
-        res = fn()
-        ms = call_ms(fn, repeats=5, warmup=1)
-        print(f"[align] {CARD}: NDT DIRECT7 {name} (bench.py's protocol, capacity {cap}): "
-              f"{ms:.2f} ms per align (median of 5), {int(res.iterations)} outer iterations, "
-              f"score {float(res.error):.2f}", flush=True)
-    return launches, (source, vmap_c, vmap_t, cfg)
+    return launches
 
 
 # ---- posterior -------------------------------------------------------------
@@ -1495,9 +1466,6 @@ ACCEPT_MIN, LAPLACE_RATIO = 0.3, (0.1, 10.0)  # JAX `test_posterior_sampling`'s 
 CIRCUIT_POSTERIOR_JAX = {"keyframes": 361, "loops": 13, "dofs": 2166,
                          "accept": 0.9242661964101941, "rhat_max": 0.9986175310943047,
                          "laplace_std_last_pose": 0.16240869078927544}
-BENCH_K, BENCH_CHAINS, BENCH_DRAWS, BENCH_RAW_DRAWS, BENCH_RAW_REPEATS = 50, 16, 512, 64, 3
-BENCH_LOOPS = ((0, 24), (10, 35), (20, 45), (5, 49), (15, 40), (2, 30))
-BENCH_ACCEPT_MIN = 0.5
 SMOOTHER_N, SMOOTHER_STAGES, SMOOTHER_MOVES = 10240, 8, 2  # BASELINE config 5: 10k+ particles
 # JAX `test_evidence_rejects_bogus_loop`: its loop (information 100 I, a
 # 0.1 m translation stddev, no Huber kernel) moved by [20, -15, 5] m, 255
@@ -1623,95 +1591,6 @@ def posterior_run(what, slam, window=None, profile_density=False):
     return dict(accept=accept, rhat_max=float(rhat.max()),
                 laplace_std_last_pose=float(lap_std[D - 6:].mean()),
                 inputs=dict(poses=res.poses, graph=graph, H=res.H, D=D))
-
-
-def bench_graphs(dtype):
-    """`bench.py`'s 50-keyframe posteriors (`bench.py:565-582,632-646`) in
-    `dtype`: the chain alone, and with its six loops (quadratic)."""
-    import numpy as np
-
-    from gorio_tpu_torch.graph.graph import PoseGraph
-
-    rng = np.random.default_rng(11)
-    Ts = [np.eye(4)]
-    for _ in range(BENCH_K - 1):
-        d = np.eye(4)
-        d[:3, 3] = [1.0, 0.02, 0.0] + rng.normal(scale=0.01, size=3)
-        Ts.append(Ts[-1] @ d)
-
-    def build(loops):
-        g = PoseGraph(dtype=dtype)
-        for T in Ts:
-            g.add_pose(T)
-        for k in range(1, BENCH_K):
-            g.add_between(k - 1, k, np.linalg.inv(Ts[k - 1]) @ Ts[k], info=np.eye(6) * 25.0)
-        g.add_prior(0, Ts[0], info=np.eye(6) * 1e4)
-        for i, j in loops:
-            g.add_between(i, j, np.linalg.inv(Ts[i]) @ Ts[j], info=np.eye(6) * 50.0)
-        return g.freeze(device="cuda")
-
-    return build(()), build(BENCH_LOOPS)
-
-
-def bench_posterior():
-    """`bench.py`'s HMC quality pass (whitened, quadratic loop-closed
-    posterior, 16 chains x 512 draws at step 0.12, adapt off, from 1.5-sigma
-    inits) and its unwhitened samples/s pass (16 chains x 64 draws, step
-    0.02), float32 on the card. The 5-iteration GN solve whose Hessian
-    whitens the density runs in float64: the port's LM does not run in
-    float32 (`torch.func.vmap(jacfwd)` promotes a division by a Python float
-    to float64; ROADMAP Queue C)."""
-    import numpy as np
-    import torch
-
-    from gorio_tpu_torch.core.lie import se3_exp_split
-    from gorio_tpu_torch.graph.solver import SolveConfig, optimize_graph
-    from gorio_tpu_torch.inference.hmc import chain_ess, potential_scale_reduction, run_hmc
-    from gorio_tpu_torch.inference.laplace import graph_logprob, unwhiten, whitened_logprob
-
-    (poses0, chain), (poses_q, loop_graph) = bench_graphs(np.float32)
-    D = BENCH_K * 6
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    res = optimize_graph(*bench_graphs(np.float64)[1], SolveConfig(max_iterations=5))
-    lp_y, L = whitened_logprob(graph_logprob(poses_q, loop_graph), res.H.float())
-    inits = torch.as_tensor(1.5 * np.random.default_rng(9).standard_normal((BENCH_CHAINS, D)),
-                            dtype=torch.float32, device="cuda")
-    run_hmc(lp_y, inits, n_samples=2, step_size=0.12, adapt=False, generator=gen)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ys, acc = run_hmc(lp_y, inits, n_samples=BENCH_DRAWS, step_size=0.12, adapt=False,
-                      generator=gen)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    x = unwhiten(L, ys).reshape(BENCH_CHAINS, BENCH_DRAWS, BENCH_K, 6)
-    T = poses_q @ se3_exp_split(x)
-    emb = torch.cat([T[..., :3, :3].reshape(*T.shape[:-2], 9), T[..., :3, 3]], dim=-1)
-    post = emb.reshape(BENCH_CHAINS, BENCH_DRAWS, -1)[:, BENCH_DRAWS // 4:].double()
-    keep = post.std(dim=(0, 1)) > 1e-7
-    ess = chain_ess(post[..., keep].cpu().numpy())
-    rhat = float(potential_scale_reduction(post[..., keep]).max())
-    accept = float(torch.nanmean(acc))
-    ms = 1e3 * wall / (BENCH_DRAWS * POSTERIOR_LEAPFROG)
-    lp = graph_logprob(poses0, chain)
-    zeros = torch.zeros((BENCH_CHAINS, D), dtype=torch.float32, device="cuda")
-    run_hmc(lp, zeros, n_samples=2, step_size=0.02, adapt=False, generator=gen)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(BENCH_RAW_REPEATS):
-        run_hmc(lp, zeros, n_samples=BENCH_RAW_DRAWS, step_size=0.02, adapt=False,
-                generator=gen)
-    torch.cuda.synchronize()
-    raw = BENCH_CHAINS * BENCH_RAW_DRAWS * BENCH_RAW_REPEATS / (time.perf_counter() - t0)
-    print(f"[bench-posterior] {CARD}: whitened quadratic {BENCH_K}-keyframe posterior with "
-          f"{len(BENCH_LOOPS)} loops, f32, {BENCH_CHAINS} chains x {BENCH_DRAWS} draws: accept "
-          f"{accept:.4f}, ESS/s min / median {ess.min() / wall:.1f} / "
-          f"{np.median(ess) / wall:.1f} (ESS {ess.min():.1f} / {np.median(ess):.1f} of "
-          f"{post.shape[0] * post.shape[1]} scored draws in {wall:.3f} s, {ms:.3f} ms per "
-          f"leapfrog step), split R-hat max {rhat:.4f} on the [R, t] embedding; unwhitened "
-          f"chain posterior: {raw:.1f} samples/s ({BENCH_CHAINS} chains x {BENCH_RAW_DRAWS} "
-          f"draws x {BENCH_RAW_REPEATS} repetitions; bench.py takes 20)", flush=True)
-    if not accept > BENCH_ACCEPT_MIN:
-        fail(f"bench-posterior: mean acceptance {accept:.4f} <= {BENCH_ACCEPT_MIN} (TF32?)")
 
 
 def smoother_graph(slam, device="cuda"):
@@ -1924,15 +1803,14 @@ def smc_card_equals_cpu(smoother_inputs):
 
 def posterior_phase(K, slice_slam):
     """Posterior inference on the slice's SLAM: the two `sample_posterior`
-    runs (their launch counts are part of the path's), bench.py's HMC
-    passes, and `run_hmc` on the card against the CPU."""
+    runs (their launch counts are part of the path's) and `run_hmc` on the
+    card against the CPU."""
     t0 = time.perf_counter()
     K.reset_launch_counts()
     first = posterior_run("slice-posterior", slice_slam)
     posterior_run(f"slice-posterior window={POSTERIOR_WINDOW}", slice_slam,
                   window=POSTERIOR_WINDOW)
     launches = dict(K.launch_counts)
-    bench_posterior()
     hmc_card_equals_cpu(first["inputs"])
     print(f"[posterior] {CARD}: the phase took {time.perf_counter() - t0:.1f} s", flush=True)
     return launches
@@ -1982,9 +1860,6 @@ BATCH_RTOL = {"torch.float64": 1e-9, "torch.float32": 1e-5}  # a batch against i
 # own result; held at the port's single-window limit against the JAX
 # package (`tests/test_torch_ugpm.py`)
 UGPM_BATCH_RTOL = 1e-8
-EGO_B, EGO_N = 64, 1024  # bench.py:491-505
-UGPM_W, UGPM_G, UGPM_V, UGPM_Q = 64, 128, 32, 256  # bench.py:507-548
-NDT_B = 8  # bench.py:276-298
 GN_ITERS = 8
 CHUNK_RAD, CHUNK_M = 2e-3, 2e-2  # JAX `test_chunked_preintegration_matches_single`
 # The JAX package's CPU f64 gaps between `quantum=1.0` and one window on that
@@ -2156,11 +2031,14 @@ def _rate_line(what, unit, n, s_batch, s_loop, err, dtype, extra="", limit=None)
 
 
 def ego_batch():
-    """`estimate_ego_velocity` over 64 scans of 1,024 points against 64
-    single calls on the same scans and draws."""
+    """`estimate_ego_velocity` over bench.py's 64 scans of 1,024 points
+    against 64 single calls on the same scans and draws. The scans are
+    rendered radar scans with Doppler (bench.py's `random_cloud`s carry
+    none, so every lane would read zero velocity)."""
     import numpy as np
     import torch
 
+    from gorio_tpu_torch.bench import EGO_B, EGO_N
     from gorio_tpu_torch.core.pointcloud import PointCloud
     from gorio_tpu_torch.estimators.egovel import (EgoVelConfig, _gate, draw_hypotheses,
                                                    estimate_ego_velocity)
@@ -2197,24 +2075,16 @@ def ego_batch():
 
 
 def ugpm_batch():
-    """`ugpm_fit` and `ugpm_query` over 64 windows (bench.py's inputs)
+    """`ugpm_fit` and `ugpm_query` over bench.py's 64 windows (float64)
     against 64 single calls."""
-    import numpy as np
     import torch
 
+    from gorio_tpu_torch.bench import UGPM_CFG, UGPM_G, UGPM_Q, UGPM_V, UGPM_W, ugpm_inputs
     from gorio_tpu_torch.preintegration.ugpm import UGPMConfig, ugpm_fit, ugpm_query
 
-    rng = np.random.default_rng(0)
-    dev, dt = torch.device("cuda"), torch.float64
-    W, G, V, Q = UGPM_W, UGPM_G, UGPM_V, UGPM_Q
-    gyr_t = torch.as_tensor(np.linspace(0, 1.0, G)[None].repeat(W, 0), dtype=dt, device=dev)
-    vel_t = torch.as_tensor(np.linspace(0, 1.0, V)[None].repeat(W, 0), dtype=dt, device=dev)
-    gyr = torch.as_tensor(rng.normal(scale=0.2, size=(W, G, 3)), dtype=dt, device=dev)
-    vel = torch.as_tensor(rng.normal(scale=1.0, size=(W, V, 3)), dtype=dt, device=dev)
-    starts = torch.full((W,), 0.2, dtype=dt, device=dev)
-    queries = torch.as_tensor(np.linspace(0.25, 0.75, Q)[None].repeat(W, 0), dtype=dt,
-                              device=dev)
-    cfg = UGPMConfig(window_duration=0.6, lm_iters=10)
+    (gyr_t, gyr, vel_t, vel, starts, queries), _ = ugpm_inputs(torch.device("cuda"))
+    W, G, V, Q, dt = UGPM_W, UGPM_G, UGPM_V, UGPM_Q, torch.float64
+    cfg = UGPMConfig(**UGPM_CFG)
     fit = lambda: ugpm_fit(gyr_t, gyr, vel_t, vel, starts, 1e-4, 1e-3, cfg)  # noqa: E731
     state, _ = _sync_s(fit)  # warm
     state, s_fit = _sync_s(fit)
@@ -2232,20 +2102,18 @@ def ugpm_batch():
                f"({W * Q / s_query:.0f} points/s)", limit=UGPM_BATCH_RTOL)
 
 
-def ndt_batch(align_maps):
-    """`ndt_align_multires` over 8 jittered sources against the align
-    phase's maps (bench.py's protocol) against 8 single aligns."""
+def ndt_batch(inp):
+    """`ndt_align_multires` over bench.py's 8 jittered sources against the
+    bench phase's maps (its protocol), against 8 single aligns."""
     import torch
 
+    from gorio_tpu_torch.bench import B_NDT as NDT_B
+    from gorio_tpu_torch.bench import ndt_batch_sources
     from gorio_tpu_torch.core.pointcloud import PointCloud
     from gorio_tpu_torch.registration.ndt import ndt_align_multires
 
-    source, vmap_c, vmap_t, cfg = align_maps
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(1)
-    jitter = 0.05 * torch.randn(NDT_B, 3, generator=gen, device="cuda", dtype=source.xyz.dtype)
-    srcs = PointCloud(*(torch.stack([x] * NDT_B) for x in source))
-    srcs = srcs._replace(xyz=srcs.xyz + jitter[:, None, :])
+    source, cfg, vmap_t, vmap_c = inp.source, inp.cfg, inp.vmap_t, inp.vmap_c
+    srcs = ndt_batch_sources(source)
     eye = torch.eye(4, device="cuda", dtype=source.xyz.dtype)
     got, s_batch = _sync_s(lambda: ndt_align_multires(srcs, vmap_c, vmap_t, eye, cfg))
 
@@ -2375,16 +2243,13 @@ def chunked_preint_phase():
                 fail(f"preint {method} quantum={quantum}: the card is off the CPU in {bad}")
 
 
-def solvers_batched_phase(K, seq, tmp, dense_ate, full_slice_graph, align_maps):
+def solvers_batched_phase(K, seq, tmp, dense_ate, full_slice_graph):
     """CG on the slice through the CLI and on the full-slice's floor graph,
-    the batched forms, `gn_optimize` and the chunked preintegration (CG on
-    the circuits' graphs runs in their lanes)."""
+    `gn_optimize` and the chunked preintegration (CG on the circuits'
+    graphs runs in their lanes, the batched forms in the bench phase)."""
     t0 = time.perf_counter()
     launches = {"cg-slice": cg_slice_phase(K, seq, tmp, dense_ate)}
     cg_full_slice_phase(full_slice_graph)
-    ego_batch()
-    ugpm_batch()
-    ndt_batch(align_maps)
     launches["gn"] = gn_phase(K, seq)
     chunked_preint_phase()
     print(f"[solvers-batched] {CARD}: the phase took {time.perf_counter() - t0:.1f} s",
@@ -2656,15 +2521,13 @@ def mesh_inputs(solve_cfg, circuit):
     import numpy as np
     import torch
 
+    from gorio_tpu_torch.bench import synth_pair, ugpm_inputs
     from gorio_tpu_torch.io.pcd import voxel_centroid_downsample
 
-    a, b, _, _ = synth_pair()
+    (a, _), (b, _) = synth_pair()
     src, tgt = (voxel_centroid_downsample(x, 0.1) for x in (a, b))
-    rng = np.random.default_rng(0)
-    W, G, V, Q = UGPM_W, UGPM_G, UGPM_V, UGPM_Q
-    gyr_t, vel_t = (np.linspace(0, 1.0, n)[None].repeat(W, 0) for n in (G, V))
-    gyr, vel = rng.normal(scale=0.2, size=(W, G, 3)), rng.normal(scale=1.0, size=(W, V, 3))
-    ugpm = (gyr_t, gyr, vel_t, vel, np.full(W, 0.2), np.linspace(0.25, 0.75, Q)[None].repeat(W, 0))
+    ugpm, _ = ugpm_inputs(torch.device("cpu"))
+    rng = np.random.default_rng(1)
     n = MESH_SMC_PER_RANK * MESH_WORLD
     gen = torch.Generator().manual_seed(0)
     smc = (torch.as_tensor(rng.normal(size=(n, MESH_SMC_D)), dtype=torch.float32),
@@ -2930,6 +2793,57 @@ def mesh_phase(K, tmp, solve_cfg, circuit):
     return launches
 
 
+# ---- bench -----------------------------------------------------------------
+
+# `gorio_tpu_torch.bench`'s repetition counts cut to fit the script's budget;
+# the widths are the module's (the 69,000-point pair, 4096-point clouds, 64
+# windows, K = 50 / 256 / 1024, 16 chains x 512 draws in the quality passes)
+BENCH_COUNTS = dict(ndt=3, ndt_sync=3, ndt_batch=2, apdgicp=3, nn_linearize=20, ego=5, ugpm=3,
+                    gp_interp=5, hmc=2, graph_solve=1, verify=3)
+KNOWN_POSE_M, KNOWN_POSE_DEG = 0.05, 1.0  # bench.py:360 (`gicp_test.cpp:150-151`)
+BENCH_ACCEPT_MIN = 0.5  # the quality pass's acceptance, which a TF32 leak collapses
+
+
+def bench_phase(K):
+    """The bench's workloads through `gorio_tpu_torch.bench.run` on the card
+    (both kernels must launch), its JSON line and its gates; then bench.py's
+    batched workloads against loops of single calls. Returns the launches."""
+    import math
+
+    import torch
+
+    from gorio_tpu_torch import bench
+
+    K.reset_launch_counts()
+    ndt, extras, inp = bench.run(torch.device("cuda"), bench.Counts(**BENCH_COUNTS),
+                                 log=lambda *a: print("[bench]", *a, flush=True))
+    launches = dict(K.launch_counts)
+    try:
+        line = bench.bench_line(ndt, extras, CARD)
+    except KeyError as e:
+        fail(f"bench: {e}")
+    print(f"[bench] {json.dumps(line)}", flush=True)
+    print(f"[bench] {CARD}: launches {launches} (counts {BENCH_COUNTS})", flush=True)
+    bad = [k for k, v in line.items() if isinstance(v, float) and not math.isfinite(v)]
+    if bad:
+        fail(f"bench: non-finite readings {bad}")
+    if not (line["known_pose_trans_err_m"] <= KNOWN_POSE_M
+            and line["known_pose_rot_err_deg"] <= KNOWN_POSE_DEG):
+        fail(f"bench: known-pose error {line['known_pose_trans_err_m']:.4f} m / "
+             f"{line['known_pose_rot_err_deg']:.4f} deg over {KNOWN_POSE_M} m / {KNOWN_POSE_DEG}")
+    if not line["fitness"] < line["fitness_identity"]:
+        fail(f"bench: fitness {line['fitness']} not below the identity's "
+             f"{line['fitness_identity']}")
+    if not line["hmc_accept_mean"] > BENCH_ACCEPT_MIN:
+        fail(f"bench: hmc_accept_mean {line['hmc_accept_mean']:.4f} <= {BENCH_ACCEPT_MIN} (TF32?)")
+    if not (launches["nn1"] > 0 and launches["nn1_select"] > 0):
+        fail(f"bench: a kernel never launched: {launches}")
+    ego_batch()
+    ugpm_batch()
+    ndt_batch(inp)
+    return launches
+
+
 # ---- lanes -----------------------------------------------------------------
 
 # The phases of the two circuit runs go in child processes of their own
@@ -3001,13 +2915,15 @@ def circuit_lane(K, tmp):
 
 
 def full_circuit_lane(K, tmp):
-    """The circuit with the paper's configuration, and CG on its first
-    floor graph at 512 padded poses."""
+    """The bench phase while the circuit is simulated, then the circuit with
+    the paper's configuration, and CG on its first floor graph at 512
+    padded poses."""
     seq = tmp / "circuit"
+    bench_launches = timed("bench", bench_phase, K)
     wait_simulation(tmp, "circuit")
     launches, _, graph = timed("full-circuit", full_circuit_phase, K, seq, tmp)
     timed("cg-graphs full-circuit", cg_graph_phase, "full-circuit", graph)
-    return {"full-circuit": launches}
+    return {"bench": bench_launches, "full-circuit": launches}
 
 
 LANES = {"circuit": circuit_lane, "full-circuit": full_circuit_lane}
@@ -3149,14 +3065,14 @@ def run_phases(tmp, procs):
     check_lanes(tmp, lanes)
     launches.update(timed("ndt-slice", ndt_slice_phase, K, seq, tmp))
     launches.update(timed("scan-to-map", scan_to_map_phase, K, seq))
-    launches["align"], align_maps = timed("align", align_phase, K, tmp)
+    launches["align"] = timed("align", align_phase, K, tmp)
     check_lanes(tmp, lanes)
     launches.update(timed("stream", stream_phase, K, seq, tmp, slice_keyframes))
     check_lanes(tmp, lanes)
     launches["posterior"] = timed("posterior", posterior_phase, K, slice_slam)
     check_lanes(tmp, lanes)
     launches.update(timed("solvers-batched", solvers_batched_phase, K, seq, tmp, slice_ate,
-                          full_slice_graph, align_maps))
+                          full_slice_graph))
     check_lanes(tmp, lanes)
     launches["bag"] = timed("bag", bag_phase, K, seq, tmp, procs["inputs"], slice_ate,
                             full_slice_ate)

@@ -18,6 +18,8 @@
                 imu.npz and gps.npz
   visualize   — render markers, trajectories and a map to a PNG
   dump-config — write the default typed config tree (JSON, or YAML)
+  bench       — the root `bench.py`'s workloads on the card, one JSON line
+                with its keys (`gorio_tpu_torch/bench.py`)
 
 Usage: python -m gorio_tpu_torch.cli <command> [args]
 
@@ -30,7 +32,7 @@ align, gt-adjust, utm-align) picks the torch device (default cuda); there
 is no fallback to the CPU. The other tools take the arguments and print
 the JSON keys of their JAX CLI counterparts; `align-traj`, `convert`,
 `convert-bag` and `visualize` are host numpy (`visualize` needs
-matplotlib). The JAX CLI's `bench` has no counterpart yet.
+matplotlib). `bench` runs only on a CUDA device (`--device`, default cuda).
 """
 
 from __future__ import annotations
@@ -641,6 +643,12 @@ def cmd_visualize(args):
     return out
 
 
+def cmd_bench(args):
+    from . import bench
+
+    return bench.main(_device(args.device))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="gorio_tpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -798,6 +806,10 @@ def main(argv=None):
     s = sub.add_parser("dump-config")
     s.add_argument("--output", default="gorio_config.json")
     s.set_defaults(fn=cmd_dump_config)
+
+    s = sub.add_parser("bench")
+    s.add_argument("--device", default="cuda")
+    s.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -1,10 +1,10 @@
 """Fixed-shape point-cloud container.
 
 Port of `PointCloud`, `make_cloud`, `filter_cloud`, `compact_cloud`,
-`distance_filter` and the voxel helpers (`voxel_key`, `masked_min_corner`,
-`voxel_downsample`) from `gorio_tpu/core/pointcloud.py`: a NamedTuple of
-padded tensors plus a validity mask, so every cloud of a sequence has the
-same shape and every op is mask-aware.
+`distance_filter`, the voxel helpers (`voxel_key`, `masked_min_corner`,
+`voxel_downsample`) and `random_cloud` from `gorio_tpu/core/pointcloud.py`:
+a NamedTuple of padded tensors plus a validity mask, so every cloud of a
+sequence has the same shape and every op is mask-aware.
 """
 
 from __future__ import annotations
@@ -210,3 +210,38 @@ def voxel_downsample(cloud: PointCloud, resolution, capacity=None):
     if capacity != n:
         out = PointCloud(*(x[:capacity] for x in out))
     return out
+
+
+def random_cloud(generator, n, extent=30.0, structured=True, dtype=torch.float32, capacity=None,
+                 device=None):
+    """Synthetic radar-like scan: planar ground + a few wall/box clusters
+    (the JAX package's distribution: n // 3 ground points at z = -1.8 with
+    3 cm noise, the rest around 12 cluster centres, or uniform when not
+    `structured`; intensity in [10, 30)). The draws come from `generator`
+    (a `torch.Generator`; JAX's key draws cannot be reproduced) on its own
+    device, so a CPU generator gives the same cloud on every `device`."""
+    gdev = generator.device
+    like = dict(generator=generator, dtype=dtype, device=gdev)
+
+    def uniform(*shape):
+        return (2.0 * torch.rand(shape, **like) - 1.0) * extent
+
+    n_ground = n // 3
+    n_rest = n - n_ground
+    gz = -1.8 + 0.03 * torch.randn(n_ground, **like)
+    ground = torch.cat([uniform(n_ground, 2), gz[:, None]], dim=-1)
+    if structured:
+        # clusters of points on vertical planes (building walls, poles)
+        n_clusters = 12
+        centers = uniform(n_clusters, 3)
+        centers[:, 2] = torch.abs(centers[:, 2]) * 0.15
+        assign = torch.randint(0, n_clusters, (n_rest,), generator=generator, device=gdev)
+        local = torch.randn(n_rest, 3, **like) * torch.tensor([2.0, 0.12, 1.2], dtype=dtype,
+                                                             device=gdev)
+        rest = centers[assign] + local
+    else:
+        rest = uniform(n_rest, 3)
+    xyz = torch.cat([ground, rest], dim=0)
+    inten = 10.0 + 20.0 * torch.rand(n, **like)
+    return make_cloud(xyz, intensity=inten, capacity=capacity,
+                      device=gdev if device is None else device)

@@ -6,7 +6,9 @@ prefetching single-stage reader), `NativePipelineDataset` (the two-thread
 decode -> pack reader) and `NativeKDTree` (exact k-NN on the host, the 1-NN
 kernels' oracle). The C++ sources stay where they are;
 `load()` compiles them with g++ at first use into `gorio_tpu_torch/_build/`
-(gitignored, file name tagged by the sources' content) and binds them.
+(gitignored, file name tagged by the sources' content) and binds them;
+`NativeUnavailable` (a `RuntimeError`, as in the JAX package) says that the
+library is not built (`load(auto_build=False)`) or that its build failed.
 """
 
 from __future__ import annotations
@@ -26,26 +28,38 @@ FIELDS = 5  # x y z intensity doppler
 _LIB = None
 
 
-def build_native() -> Path:
-    """Compile `native/src/*.cc` into `_build/` (once per source content)
-    and return the shared library's path."""
-    srcs = sorted(_SRC.glob("*.cc"))
-    if not srcs:
-        raise RuntimeError(f"no native sources under {_SRC}")
+class NativeUnavailable(RuntimeError):
+    """The native runtime is not built and may not be, or its build failed."""
+
+
+def _library_path() -> Path:
+    """Where the library of the current sources lives, built or not."""
+    if not any(_SRC.glob("*.cc")):
+        raise NativeUnavailable(f"no native sources under {_SRC}")
     digest = hashlib.sha1()
     for p in sorted(_SRC.iterdir()):
         digest.update(p.name.encode() + p.read_bytes())
-    lib = BUILD_DIR / f"libgorio_native_{digest.hexdigest()[:12]}.so"
-    if lib.exists():
+    return BUILD_DIR / f"libgorio_native_{digest.hexdigest()[:12]}.so"
+
+
+def _compiler():
+    return shutil.which("g++") or shutil.which("c++")
+
+
+def build_native(force: bool = False) -> Path:
+    """Compile `native/src/*.cc` into `_build/` (once per source content,
+    again with `force`) and return the shared library's path."""
+    lib = _library_path()
+    if lib.exists() and not force:
         return lib
-    cxx = shutil.which("g++") or shutil.which("c++")
+    cxx = _compiler()
     if cxx is None:
         raise RuntimeError("building the native .grf runtime needs g++")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
     proc = subprocess.run(
         [cxx, "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread", "-fopenmp",
-         "-o", str(tmp), *map(str, srcs)],
+         "-o", str(tmp), *map(str, sorted(_SRC.glob("*.cc")))],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:
@@ -54,11 +68,21 @@ def build_native() -> Path:
     return lib
 
 
-def load():
-    """Build (if needed) and bind the runtime; cached per process."""
+def load(auto_build: bool = True):
+    """Bind the runtime, building it first unless `auto_build` is false;
+    cached per process. Raises `NativeUnavailable` where the library is
+    not built and `auto_build` is false, or where its build fails."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build_native()))
+        lib_path = _library_path()
+        if not lib_path.exists():
+            if not auto_build:
+                raise NativeUnavailable(f"{lib_path.name} is not built")
+            try:
+                lib_path = build_native()
+            except (RuntimeError, OSError) as e:
+                raise NativeUnavailable(f"native build failed: {e}") from e
+        lib = ctypes.CDLL(str(lib_path))
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.gorio_write_frame.restype = I
         lib.gorio_write_frame.argtypes = [

@@ -134,10 +134,10 @@ def shard_rows(mesh: Mesh | None, n: int, axis: str) -> slice:
     return slice(c * (n // k), (c + 1) * (n // k))
 
 
-def shard_batch(mesh: Mesh, x, axis: str = "dp"):
+def shard_batch(mesh: Mesh, x, axis_name: str = "dp"):
     """This rank's rows of dim 0 of the global `x`, contiguous, on its device."""
     x = torch.as_tensor(x)
-    return x[shard_rows(mesh, x.shape[0], axis)].to(mesh.device).contiguous()
+    return x[shard_rows(mesh, x.shape[0], axis_name)].to(mesh.device).contiguous()
 
 
 def replicate(mesh: Mesh, x):

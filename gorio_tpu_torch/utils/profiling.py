@@ -1,17 +1,20 @@
-"""Per-stage timing statistics.
+"""Per-stage timing statistics and device traces.
 
 The port's own copy of `StageTimer` from `gorio_tpu/utils/profiling.py`:
 wall times per named stage and a median/mean/max report, the counterpart of
 the reference's `/command "time"` dump. On a CUDA device the timer
 synchronises the device before it reads the clock at a stage's start and
 end, so a stage's time is the device work it enqueued and not only the
-enqueue, and excludes work enqueued before it.
+enqueue, and excludes work enqueued before it. `trace()` is the counterpart
+of the JAX package's `jax.profiler` wrapper, over `torch.profiler`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import statistics
+import tempfile
 import time
 from collections import defaultdict
 
@@ -55,3 +58,23 @@ class StageTimer:
                 f"{statistics.mean(ms):>12.2f}{max(ms):>12.2f}"
             )
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def trace(log_dir=None):
+    """Profile the block with `torch.profiler`: host activities, and the
+    card's where one is present. On exit writes a Chrome trace
+    (`trace.json`, view it in Perfetto or chrome://tracing) into `log_dir`
+    (default `gorio_trace` under the temporary directory) and yields
+    `log_dir`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if log_dir is None:
+        log_dir = os.path.join(tempfile.gettempdir(), "gorio_trace")
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield log_dir
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -1,0 +1,93 @@
+"""The port's API is the JAX package's: an `ast` scan of both packages.
+
+Every public top-level function and class, and every public method of a
+public class, of `gorio_tpu/<m>.py` has a namesake in
+`gorio_tpu_torch/<m>.py`, and every parameter of the JAX function exists in
+its counterpart. What has no counterpart by design is in `EXCEPTIONS`, each
+with its reason; a JAX `key` or `rng` parameter is replaced by a
+`torch.Generator` (`generator`) or by the draws as tensors, since
+`jax.random` cannot be reproduced."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+JAX, PORT = ROOT / "gorio_tpu", ROOT / "gorio_tpu_torch"
+RANDOM_KEYS = {"key", "rng"}  # replaced by `generator` or explicit draws
+# the port module that holds a JAX module's names, where the file differs
+MODULES = {"ops/nn_pallas.py": "ops/nn.py"}
+EXCEPTIONS = {
+    ("graph/factors.py", "empty_graph", "xp"):
+        "picks numpy or jnp for the arrays; the port's are torch tensors",
+    ("graph/factors.py", "empty_plane_graph", "xp"):
+        "picks numpy or jnp for the arrays; the port's are torch tensors",
+    ("graph/graph.py", "PoseGraph.freeze", "as_numpy"):
+        "host arrays as jit constants; the port freezes onto a `device`",
+    ("graph/graph.py", "PoseGraph.freeze_planes", "as_numpy"):
+        "host arrays as jit constants; the port freezes onto a `device`",
+    ("ops/nn_pallas.py", "nn1_pallas", None):
+        "the Pallas entry point; its port is `nn1_best` over the `gorio_nn1` kernel",
+    ("ops/nn_pallas.py", "nn1_select_pallas", None):
+        "the Pallas entry point; its port is `nn1_select` over the `gorio_nn1_select` kernel",
+}
+
+
+def _params(fn):
+    a = fn.args
+    return [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs
+            + [v for v in (a.vararg, a.kwarg) if v is not None]]
+
+
+def _public(path):
+    """{name: parameters} of the public functions, classes (None) and the
+    public methods of public classes ("Class.method") at a module's top."""
+    out = {}
+    for node in ast.parse(path.read_text()).body:
+        if getattr(node, "name", "_").startswith("_"):
+            continue
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out[node.name] = _params(node)
+        elif isinstance(node, ast.ClassDef):
+            out[node.name] = None
+            for sub in node.body:
+                if (isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef))
+                        and not sub.name.startswith("_")):
+                    out[f"{node.name}.{sub.name}"] = _params(sub)
+    return out
+
+
+JAX_MODULES = sorted(str(p.relative_to(JAX)) for p in JAX.rglob("*.py") if _public(p))
+
+
+@pytest.mark.parametrize("module", JAX_MODULES)
+def test_every_public_name_has_a_counterpart(module):
+    port_file = PORT / MODULES.get(module, module)
+    assert port_file.is_file(), f"no gorio_tpu_torch/{MODULES.get(module, module)}"
+    port = _public(port_file)
+    missing = []
+    for name, params in _public(JAX / module).items():
+        if (module, name, None) in EXCEPTIONS:
+            continue
+        if name not in port:
+            missing.append(name)
+            continue
+        missing += [f"{name}({p}=)" for p in params or ()
+                    if p not in port[name] and p not in RANDOM_KEYS
+                    and (module, name, p) not in EXCEPTIONS]
+    assert not missing, f"gorio_tpu/{module}: no counterpart in the port for {missing}"
+
+
+def test_every_exception_is_still_needed():
+    """An entry of `EXCEPTIONS` names a JAX name or parameter that exists
+    and that the port does not have."""
+    for (module, name, param), reason in EXCEPTIONS.items():
+        assert reason
+        jax_names = _public(JAX / module)
+        assert name in jax_names, (module, name)
+        port = _public(PORT / MODULES.get(module, module))
+        if param is None:
+            assert name not in port, (module, name)
+        else:
+            assert param in jax_names[name] and param not in port[name], (module, name, param)

@@ -152,3 +152,40 @@ def test_make_and_filter_cloud_match_jax():
         tf = tpc.filter_cloud(tc, torch.as_tensor(keep))
         for a, b in zip(list(jc) + list(jf), list(tc) + list(tf)):
             np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
+def test_random_cloud_is_the_jax_distribution_and_repeats_under_one_seed():
+    """`random_cloud` draws the JAX package's scan (n // 3 ground points at
+    z = -1.8 with 3 cm noise, the rest in 12 clusters or uniform, intensity
+    in [10, 30), padding parked) from a torch.Generator: one seed gives one
+    cloud, and its moments are JAX's draw's within sampling error."""
+    import jax
+
+    n, cap = 3000, 4096
+
+    def draw(seed, **kw):
+        return tpc.random_cloud(torch.Generator().manual_seed(seed), n, capacity=cap, **kw)
+
+    c = draw(0)
+    for a, b in zip(c, draw(0)):
+        assert torch.equal(a, b)
+    assert not torch.equal(c.xyz, draw(1).xyz)
+    j = jax.jit(jpc.random_cloud, static_argnums=1, static_argnames=("capacity", "dtype"))(
+        jax.random.PRNGKey(0), n, capacity=cap, dtype=jnp.float64)
+    assert c.xyz.dtype == torch.float32 and draw(0, dtype=torch.float64).xyz.dtype == torch.float64
+    assert int(c.mask.sum()) == int(np.asarray(j.mask).sum()) == n
+    assert torch.all(c.xyz[n:] == tpc.PAD_COORD) and torch.all(c.intensity[n:] == 0)
+    ground, jground = c.xyz[: n // 3].double().numpy(), np.asarray(j.xyz[: n // 3])
+    for g in (ground, jground):
+        assert abs(g[:, 2].mean() + 1.8) < 0.01 and 0.025 < g[:, 2].std() < 0.035
+        assert np.abs(g[:, :2]).max() <= 30.0
+    inten = c.intensity[:n]
+    assert float(inten.min()) >= 10.0 and float(inten.max()) < 30.0
+    # the clusters: walls 2 x 0.12 x 1.2 m around 12 centres, so sorted by
+    # y the rest falls into at most 12 runs without a 6-sigma (0.72 m) gap
+    for rest in (c.xyz[n // 3: n].double().numpy(), np.asarray(j.xyz[n // 3: n])):
+        ys = np.sort(rest[:, 1])
+        gaps = np.diff(ys) > 6 * 0.12
+        assert int(gaps.sum()) + 1 <= 12
+    flat = draw(0, structured=False).xyz[n // 3: n]
+    assert float(flat.abs().max()) <= 30.0 and float(flat[:, 2].std()) > 10.0

@@ -7,8 +7,11 @@ native `.grf` runtime.
 Tolerance: the copies run the same numpy arithmetic on the same inputs, so
 the metrics agree to 1e-12 (in practice bit for bit)."""
 
+import json
+
 import numpy as np
 import pytest
+import torch
 from scipy.spatial.transform import Rotation
 
 from gorio_tpu.io import native as jnative
@@ -16,7 +19,7 @@ from gorio_tpu.io import tum as jtum
 from gorio_tpu.utils.profiling import StageTimer as JStageTimer
 from gorio_tpu_torch.io import native as tnative
 from gorio_tpu_torch.io import tum as ttum
-from gorio_tpu_torch.utils.profiling import StageTimer
+from gorio_tpu_torch.utils.profiling import StageTimer, trace
 
 
 def _trajectory(seed, n, noise=0.0, stamp_jitter=0.0):
@@ -91,6 +94,46 @@ def test_stage_timer_reports_like_jax():
     t.toc("d")
     assert len(t.samples["c"]) == len(t.samples["d"]) == 1
     assert not t._sync
+
+
+def test_trace_writes_a_chrome_trace_of_the_block(tmp_path):
+    """`trace` profiles its block with torch.profiler and writes a Chrome
+    trace into `log_dir`, as the JAX package's `trace` wraps its profiler."""
+    with trace(str(tmp_path / "trace")) as log_dir:
+        torch.mm(torch.ones(8, 8), torch.ones(8, 8))
+    events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
+    assert log_dir == str(tmp_path / "trace")
+    assert any(e.get("name") == "aten::mm" for e in events)
+
+
+def test_native_unavailable_auto_build_and_force(tmp_path, monkeypatch):
+    """The JAX package's semantics (`gorio_tpu/io/native.py:25-61`) with a
+    fake compiler and build directory: `load(auto_build=False)` of a
+    library not built raises `NativeUnavailable`, a failed build raises it
+    from its cause, `build_native` skips a built library and `force=True`
+    rebuilds it. Callers catching `RuntimeError` still catch it."""
+    assert issubclass(tnative.NativeUnavailable, RuntimeError)
+    assert issubclass(jnative.NativeUnavailable, RuntimeError)
+    monkeypatch.setattr(tnative, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(tnative, "_LIB", None)
+    with pytest.raises(tnative.NativeUnavailable, match="not built"):
+        tnative.load(auto_build=False)
+    monkeypatch.setattr(tnative, "_compiler", lambda: None)
+    with pytest.raises(RuntimeError, match="native build failed") as err:
+        tnative.load()
+    assert isinstance(err.value, tnative.NativeUnavailable)
+    assert "needs g++" in str(err.value.__cause__)
+    calls, fake = tmp_path / "calls", tmp_path / "fakecxx"
+    fake.write_text(f'#!/bin/sh\necho call >> "{calls}"\n'
+                    'while [ "$1" != "-o" ]; do shift; done\n: > "$2"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(tnative, "_compiler", lambda: str(fake))
+    lib = tnative.build_native()
+    assert lib.exists() and lib.parent == tmp_path / "build"
+    assert tnative.build_native() == lib
+    assert calls.read_text().split() == ["call"]
+    assert tnative.build_native(force=True) == lib
+    assert calls.read_text().split() == ["call", "call"]
 
 
 def test_native_runtime_builds_in_the_port_and_reads_jax_frames(tmp_path):
