@@ -299,12 +299,16 @@ Phases, one line each (more for the tables):
                kernel. Then bench.py's batched workloads as single batched
                calls, each against a loop of single calls on the same inputs
                (1e-9 relative in f64, 1e-5 in f32; UGPM 1e-8, its LM's own
-               noise floor being ~1e-9), with their rates: ego velocity over
+               noise floor being ~1e-9), timed by the bench module's
+               protocol, with their rates: ego velocity over
                64 rendered radar scans of 1,024 points (scans/s; the masks
                must be equal), UGPM fit and query over 64 windows of G =
                128, V = 32 (10 LM iterations; windows/s), NDT DIRECT7
                coarse-to-fine over the 8 jittered sources against the
-               phase's maps (aligns/s; the same outer iterations per lane).
+               phase's maps, both cast to float64 (aligns/s; the same outer
+               iterations per lane; in float32 a lane whose stop test sits
+               near its threshold parts from its single align by more than
+               rounding, whatever the draws: ROADMAP C4).
                Its launches are the "bench" path. It runs first in the
                full-circuit lane, while the circuit is simulated.
 The two sequences are simulated in child processes started at the beginning,
@@ -352,6 +356,10 @@ ALIGN_CAP = 131072  # the align pair's power-of-two capacity
 ALIGN = (f"align pair: ({ALIGN_CAP}, 3) f32 query and ref, the synthetic pair's masks, f32 "
          f"P=11 payload")
 ALIGN_LIBRARY_BLOCK = 8192  # queries per `cdist` call at the align pair
+BENCH_APD = ("bench APDGICP: (4096, 3) f32 source as query, f32 target and its mask as ref, "
+             "the linearize's f32 P=11 payload")
+BENCH_VERIFY = ("bench verification: B=8 pairs of (1024, 3) f32, the linearize's f32 P=11 "
+                "payload")
 CIRCUIT_SIM = ["--duration", "75", "--rate", "5", "--seed", "22", "--circuit", "--laps", "2",
                "--dynamic", "2"]
 # The JAX package's record of the same commands (`python -m gorio_tpu.cli`,
@@ -477,13 +485,12 @@ def fail(msg):
 
 
 def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if out.returncode != 0 or not out.stdout.strip():
-        fail(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
+    from gorio_tpu_torch.bench import card_name
+
+    try:
+        return card_name(0)
+    except (OSError, subprocess.SubprocessError) as e:
+        fail(f"nvidia-smi failed: {e}")
 
 
 def check_pair(name, q, r, mask, got, want, split=None):
@@ -607,6 +614,8 @@ def bound(q, r, mask, payload, sel):
 def kernel_phase(K):
     import torch
 
+    from gorio_tpu_torch import bench
+
     f32, f64 = torch.float32, torch.float64
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -644,6 +653,8 @@ def kernel_phase(K):
     cases[VERIFY] = inputs(VERIFY_B, MAIN_N, MAIN_N, 0.1)
     cases[SUBMAP] = tuple(t[0] for t in inputs(1, MAIN_N, SUBMAP_M, 0.1, f64, f64, f64))
     cases[ALIGN] = align_inputs(g)
+    cases[BENCH_APD] = bench_gicp_inputs(*bench.apdgicp_pair(dev))
+    cases[BENCH_VERIFY] = bench_gicp_inputs(*bench.verify_pairs(dev))
 
     errs = {}
     for label, (q, r, m, p) in cases.items():
@@ -710,6 +721,15 @@ def align_inputs(g):
     cov6 = torch.randn(ALIGN_CAP, 6, generator=g, device=dev)
     payload = torch.cat([tgt.xyz, cov6, tgt.cluster[:, None], tgt.mask.float()[:, None]], -1)
     return src.xyz, tgt.xyz, tgt.mask, payload
+
+
+def bench_gicp_inputs(src, tgt):
+    """The bench's own calls on a GICP pair (one or a batch): the source as
+    query, the target and its mask as ref, and the linearize's payload
+    (`nn_inprog_ms` is the same call without it)."""
+    from gorio_tpu_torch.registration.gicp import GICPConfig, gicp_payload, prepare_gicp
+
+    return src.xyz, tgt.xyz, tgt.mask, gicp_payload(prepare_gicp(src, tgt, GICPConfig()))
 
 
 def _timed_fns(K, q, r, m, p, library_block=None):
@@ -1873,14 +1893,22 @@ CARD_CPU_PREINT = 1e-9
 
 
 def _sync_s(fn):
-    """(fn(), seconds) with the card synchronised around it."""
+    """(fn(), seconds) of one call on the card, the bench module's timer."""
     import torch
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
+    from gorio_tpu_torch.bench import timed_call
+
+    return timed_call(fn, torch.device("cuda"))
+
+
+def _mean_s(fn, n):
+    """Seconds per call of `n` calls after a warm-up, the bench module's
+    protocol."""
+    import torch
+
+    from gorio_tpu_torch.bench import mean_s
+
+    return mean_s(fn, n, torch.device("cuda"))
 
 
 def _rel_gap(got, want):
@@ -2054,7 +2082,7 @@ def ego_batch():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     hyp = draw_hypotheses(_gate(batch, cfg)[0], cfg.ransac_iter, cfg.n_ransac_points, gen)
-    got, s_batch = _sync_s(lambda: estimate_ego_velocity(batch, cfg, hyp_idx=hyp))
+    got = estimate_ego_velocity(batch, cfg, hyp_idx=hyp)
 
     def loop():
         return [estimate_ego_velocity(PointCloud(*(x[b] for x in batch)), cfg, hyp_idx=hyp[b])
@@ -2065,8 +2093,7 @@ def ego_batch():
     err = max(_rel_gap((got.v[b], got.sigma[b]), (r.v, r.sigma)) for b, r in enumerate(one))
     masks = all(torch.equal(got.inlier_mask[b], r.inlier_mask) and torch.equal(got.ok[b], r.ok)
                 for b, r in enumerate(one))
-    s_batch = call_ms(lambda: estimate_ego_velocity(batch, cfg, hyp_idx=hyp), repeats=10,
-                      warmup=2) / 1e3
+    s_batch = _mean_s(lambda: estimate_ego_velocity(batch, cfg, hyp_idx=hyp), 10)
     _rate_line(f"ego-velocity ({EGO_B} scans of {EGO_N} points)", "scans", EGO_B, s_batch, s_loop,
                err, batch.xyz.dtype, f", masks {'equal' if masks else 'DIFFERENT'}, "
                f"{int(got.ok.sum())} ok, {int(got.zero_velocity.sum())} at zero velocity")
@@ -2086,9 +2113,10 @@ def ugpm_batch():
     W, G, V, Q, dt = UGPM_W, UGPM_G, UGPM_V, UGPM_Q, torch.float64
     cfg = UGPMConfig(**UGPM_CFG)
     fit = lambda: ugpm_fit(gyr_t, gyr, vel_t, vel, starts, 1e-4, 1e-3, cfg)  # noqa: E731
-    state, _ = _sync_s(fit)  # warm
-    state, s_fit = _sync_s(fit)
-    got, s_query = _sync_s(lambda: ugpm_query(state, starts, queries))
+    s_fit = _mean_s(fit, 2)
+    state = fit()
+    s_query = _mean_s(lambda: ugpm_query(state, starts, queries), 5)
+    got = ugpm_query(state, starts, queries)
 
     def loop():
         return [ugpm_query(ugpm_fit(gyr_t[w], gyr[w], vel_t[w], vel[w], starts[w], 1e-4, 1e-3,
@@ -2103,19 +2131,27 @@ def ugpm_batch():
 
 
 def ndt_batch(inp):
-    """`ndt_align_multires` over bench.py's 8 jittered sources against the
-    bench phase's maps (its protocol), against 8 single aligns."""
+    """`ndt_align_multires` over bench.py's 8 jittered sources against 8
+    single aligns, on the bench phase's pair and maps cast to float64: there
+    the two forms agree to rounding whatever the draws, where in float32 a
+    lane whose stop test sits near its threshold parts from its single
+    align by more (ROADMAP C4)."""
     import torch
 
     from gorio_tpu_torch.bench import B_NDT as NDT_B
     from gorio_tpu_torch.bench import ndt_batch_sources
     from gorio_tpu_torch.core.pointcloud import PointCloud
-    from gorio_tpu_torch.registration.ndt import ndt_align_multires
+    from gorio_tpu_torch.registration.ndt import build_voxel_map, coarse_cfg, ndt_align_multires
 
-    source, cfg, vmap_t, vmap_c = inp.source, inp.cfg, inp.vmap_t, inp.vmap_c
+    def f64(cloud):
+        return cloud._replace(**{f: x.double() for f, x in zip(cloud._fields, cloud)
+                                 if x.is_floating_point()})
+
+    target, source, cfg = f64(inp.target), f64(inp.source), inp.cfg
+    vmap_t, vmap_c = build_voxel_map(target, cfg), build_voxel_map(target, coarse_cfg(cfg))
     srcs = ndt_batch_sources(source)
     eye = torch.eye(4, device="cuda", dtype=source.xyz.dtype)
-    got, s_batch = _sync_s(lambda: ndt_align_multires(srcs, vmap_c, vmap_t, eye, cfg))
+    got = ndt_align_multires(srcs, vmap_c, vmap_t, eye, cfg)
 
     def loop():
         return [ndt_align_multires(PointCloud(*(x[b] for x in srcs)), vmap_c, vmap_t, eye, cfg)
@@ -2125,7 +2161,7 @@ def ndt_batch(inp):
     err = max(_rel_gap((got.T[b], got.error[b]), (r.T, r.error)) for b, r in enumerate(one))
     iters = got.iterations.tolist()
     same_iters = iters == [int(r.iterations) for r in one]
-    _, s_batch = _sync_s(lambda: ndt_align_multires(srcs, vmap_c, vmap_t, eye, cfg))
+    s_batch = _mean_s(lambda: ndt_align_multires(srcs, vmap_c, vmap_t, eye, cfg), 1)
     _rate_line(f"NDT DIRECT7 coarse-to-fine ({NDT_B} sources of capacity "
                f"{source.xyz.shape[0]})", "aligns", NDT_B, s_batch, s_loop, err, source.xyz.dtype,
                f"; outer iterations per lane {iters} "

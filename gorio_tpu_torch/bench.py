@@ -109,6 +109,15 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def timed_call(fn, device):
+    """(fn(), seconds) of one call, the card synchronised around it."""
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, time.perf_counter() - t0
+
+
 def mean_s(fn, n, device):
     """Seconds per call: the host clock around `n` calls of `fn` ending in a
     synchronise, over `n`, after one warm-up call."""
@@ -124,29 +133,22 @@ def mean_s(fn, n, device):
 def median_s(fn, n, device):
     """Median seconds of `n` single calls, each synchronised."""
     fn()
-    ts = []
-    for _ in range(n):
-        _sync(device)
-        t0 = time.perf_counter()
-        fn()
-        _sync(device)
-        ts.append(time.perf_counter() - t0)
-    return statistics.median(ts)
+    return statistics.median(timed_call(fn, device)[1] for _ in range(n))
 
 
 # ---- inputs (numpy copies of bench.py's) ------------------------------------
 
 
-def make_solve_graph(Kg: int, seed: int = 5, dtype=np.float32):
+def make_solve_graph(Kg: int, dtype=np.float32):
     """The pose-graph solve problem of `bench.py` (and
-    `scripts/graph_baseline.py`): a chain with noisy odometry-grade
+    `scripts/graph_baseline.py`, seed 5): a chain with noisy odometry-grade
     initial poses and 5% loop edges with a Huber kernel."""
     from scipy.spatial.transform import Rotation
 
     from .graph.graph import PoseGraph
 
     gg = PoseGraph(dtype=dtype)
-    rngg = np.random.default_rng(seed)
+    rngg = np.random.default_rng(5)
     Ts2 = [np.eye(4)]
     for _ in range(Kg - 1):
         d = np.eye(4)
@@ -253,16 +255,15 @@ def ndt_inputs(tgt_xyz, src_xyz, device, dtype=torch.float32) -> NDTInputs:
                      build_voxel_map(target, coarse_cfg(cfg)))
 
 
-def ndt_batch_sources(source, b=B_NDT, seed=1):
-    """`b` copies of `source`, each moved by its own N(0, 5 cm) jitter,
-    drawn on the source's device from a generator seeded `seed` (bench.py's
-    PRNGKey(1))."""
+def ndt_batch_sources(source):
+    """`B_NDT` copies of `source`, each moved by its own N(0, 5 cm) jitter,
+    drawn in float32 on a CPU generator seeded 1 (bench.py's PRNGKey(1)),
+    so that every device and dtype gets the same jitter."""
     from .core.pointcloud import PointCloud
 
-    device = source.xyz.device
-    gen = torch.Generator(device=device).manual_seed(seed)
-    jitter = 0.05 * torch.randn(b, 3, generator=gen, dtype=source.xyz.dtype, device=device)
-    srcs = PointCloud(*(torch.stack([x] * b) for x in source))
+    gen = torch.Generator().manual_seed(1)
+    jitter = (0.05 * torch.randn(B_NDT, 3, generator=gen)).to(source.xyz)
+    srcs = PointCloud(*(torch.stack([x] * B_NDT) for x in source))
     return srcs._replace(xyz=srcs.xyz + jitter[:, None, :])
 
 
@@ -327,7 +328,7 @@ def ndt_times(inp: NDTInputs, counts: Counts) -> dict:
     }
 
 
-def ndt_readings(inp: NDTInputs, counts: Counts, log=log) -> dict:
+def ndt_readings(inp: NDTInputs, counts: Counts, log) -> dict:
     """Every NDT reading of `bench.py`'s main(), logged as it logs them."""
     r = {**ndt_times(inp, counts), **ndt_quality(inp)}
     log(f"ndt converged in {r['ndt_iterations']} iters, score {r['ndt_score']:.1f}")
@@ -350,27 +351,28 @@ def ndt_readings(inp: NDTInputs, counts: Counts, log=log) -> dict:
 # ---- secondary() ------------------------------------------------------------
 
 
-def _clouds(seed, b, n, device, dtype=torch.float32):
-    """`b` `random_cloud`s of `n` points stacked on `device`, drawn on a CPU
-    generator seeded `seed` (bench.py's PRNGKey(seed), split b ways)."""
+def _clouds(seed, b, n, device):
+    """`b` float32 `random_cloud`s of `n` points stacked on `device`, drawn
+    on a CPU generator seeded `seed` (bench.py's PRNGKey(seed), split b
+    ways)."""
     from .core.pointcloud import PointCloud, random_cloud
 
     gen = torch.Generator().manual_seed(seed)
-    clouds = [random_cloud(gen, n, capacity=n, dtype=dtype) for _ in range(b)]
+    clouds = [random_cloud(gen, n, capacity=n) for _ in range(b)]
     return PointCloud(*(torch.stack(x).to(device) for x in zip(*clouds)))
 
 
-def apdgicp_pair(device, dtype=torch.float32):
-    """The radar-scale APDGICP pair: a 4096-point `random_cloud` (seed 0)
-    and the same cloud moved by [0.4, 0.15, 0.02] m."""
+def apdgicp_pair(device):
+    """The radar-scale APDGICP pair (source, target): a 4096-point
+    `random_cloud` (seed 0) and the same cloud moved by [0.4, 0.15, 0.02] m."""
     from .core.pointcloud import PointCloud
 
-    tgt = PointCloud(*(x[0] for x in _clouds(0, 1, APD_N, device, dtype)))
-    shift = torch.tensor([0.4, 0.15, 0.02], dtype=dtype, device=device)
+    tgt = PointCloud(*(x[0] for x in _clouds(0, 1, APD_N, device)))
+    shift = torch.tensor([0.4, 0.15, 0.02], device=device)
     return tgt._replace(xyz=torch.where(tgt.mask[:, None], tgt.xyz + shift, tgt.xyz)), tgt
 
 
-def apdgicp_readings(src, tgt, counts: Counts, log=log) -> dict:
+def apdgicp_readings(src, tgt, counts: Counts, log) -> dict:
     """`apdgicp_align_ms` and the NN / linearize split (`nn_inprog_ms`:
     one `gorio_nn1` call; `linearize_inprog_ms`: one linearize, whose NN is
     one `gorio_nn1_select` call)."""
@@ -393,7 +395,7 @@ def apdgicp_readings(src, tgt, counts: Counts, log=log) -> dict:
             "nn_frac_inprog": frac}
 
 
-def ego_rate(device, counts: Counts, log=log) -> float:
+def ego_rate(device, counts: Counts, log) -> float:
     """Scans/s of `estimate_ego_velocity` over `EGO_B` `random_cloud`s
     (seed 2) in one batched call, the RANSAC draws made in each call from a
     generator seeded 3 (bench.py's keys)."""
@@ -427,7 +429,7 @@ def ugpm_inputs(device, n_batches=0):
 
 
 
-def ugpm_rates(device, counts: Counts, log=log):
+def ugpm_rates(device, counts: Counts, log):
     """UGPM windows/s over distinct gyro batches (`counts.ugpm` fits of
     `UGPM_W` windows) and GP-interpolation points/s."""
     from .preintegration.ugpm import UGPMConfig, ugpm_fit, ugpm_query
@@ -474,7 +476,7 @@ def hmc_graph(dtype, device, loops=False, robust=False):
     return g.freeze(device=device)
 
 
-def hmc_rate(device, counts: Counts, log=log) -> float:
+def hmc_rate(device, counts: Counts, log) -> float:
     """Samples/s of `run_hmc` on the unwhitened chain posterior, float32:
     16 chains x 64 draws at step 0.02, adapt off, `counts.hmc` times."""
     from .inference.hmc import run_hmc
@@ -544,7 +546,7 @@ def quality_pass(device, robust, draws):
             "accept": float(torch.nanmean(acc.double()))}
 
 
-def hmc_quality(device, counts: Counts, log=log) -> dict:
+def hmc_quality(device, counts: Counts, log) -> dict:
     q = quality_pass(device, False, counts.hmc_quality_draws)
     log(f"hmc quality-normalized (quadratic loop-closed posterior, whitened kernel): ESS/s min "
         f"{q['ess_min'] / q['wall_s']:.0f} / median {q['ess_median'] / q['wall_s']:.0f} (ESS "
@@ -564,7 +566,7 @@ def hmc_quality(device, counts: Counts, log=log) -> dict:
             "hmc_robust_rhat_max": qr["rhat_max"]}
 
 
-def graph_solves(device, counts: Counts, log=log) -> dict:
+def graph_solves(device, counts: Counts, log) -> dict:
     """Warm `optimize_graph_sparse` (the exact tridiagonal + Woodbury
     solve, 10 LM iterations) on `make_solve_graph(K)` for K in `GRAPH_KS`,
     in float64 (the port's LM does not run bench.py's float32 graphs)."""
@@ -584,21 +586,26 @@ def graph_solves(device, counts: Counts, log=log) -> dict:
     return out
 
 
-def verify_rate(device, counts: Counts, log=log) -> float:
+def verify_pairs(device):
+    """Batched loop verification's pairs (sources, targets): `VERIFY_B`
+    `random_cloud`s (seed 8), each source its target moved by [0.3, 0.1, 0] m."""
+    tgts = _clouds(8, VERIFY_B, VERIFY_N, device)
+    return tgts._replace(xyz=tgts.xyz + torch.tensor([0.3, 0.1, 0.0], device=device)), tgts
+
+
+def verify_rate(device, counts: Counts, log) -> float:
     """Aligns/s of batched loop verification: `gicp_align_batch` over
-    `VERIFY_B` `random_cloud` pairs (seed 8), each source its target moved
-    by [0.3, 0.1, 0] m."""
+    `verify_pairs`."""
     from .registration.gicp import GICPConfig, gicp_align_batch
 
-    tgts = _clouds(8, VERIFY_B, VERIFY_N, device)
-    srcs = tgts._replace(xyz=tgts.xyz + torch.tensor([0.3, 0.1, 0.0], device=device))
+    srcs, tgts = verify_pairs(device)
     eye = torch.eye(4, device=device).expand(VERIFY_B, 4, 4)
     s = mean_s(lambda: gicp_align_batch(srcs, tgts, eye, GICPConfig()).T, counts.verify, device)
     log(f"batched gicp verify: {VERIFY_B / s:.1f} aligns/s (batch {VERIFY_B})")
     return VERIFY_B / s
 
 
-def secondary(device, counts: Counts = Counts(), log=log) -> dict:
+def secondary(device, counts: Counts, log) -> dict:
     """bench.py's secondary(): the extras of the JSON line (`EXTRA_KEYS`);
     the rates without a key go to `log`. A failure propagates (bench.py
     catches it and prints the line without the extras)."""
@@ -613,11 +620,12 @@ def secondary(device, counts: Counts = Counts(), log=log) -> dict:
 
 
 def card_name(device) -> str:
-    """The card's name and power limit as `nvidia-smi` gives them."""
+    """The card's name and power limit as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` gives them."""
     index = torch.device(device).index or 0
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", str(index)],
-        capture_output=True, text=True, check=True).stdout.strip()
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
 def bench_line(ndt: dict, extras: dict, card: str) -> dict:
@@ -659,7 +667,7 @@ def run(device, counts: Counts = Counts(), log=log):
     return ndt, secondary(device, counts, log), inp
 
 
-def main(device="cuda", counts: Counts = Counts()):
+def main(device="cuda"):
     """Run every workload on the card and print the JSON line on stdout.
     There is no fallback to the CPU (bench.py falls back where its device
     backend fails): without a card this raises."""
@@ -672,7 +680,7 @@ def main(device="cuda", counts: Counts = Counts()):
     torch.backends.cudnn.allow_tf32 = False
     card = card_name(device)
     log(f"device: {card} | {torch.cuda.get_device_name(device)}")
-    ndt, extras, _ = run(device, counts)
+    ndt, extras, _ = run(device)
     line = bench_line(ndt, extras, card)
     print(json.dumps(line), flush=True)
     return line

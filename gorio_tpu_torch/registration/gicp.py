@@ -262,6 +262,17 @@ def _mah33(c):
     )
 
 
+def gicp_payload(prob: GICPProblem):
+    """The `nn1_select` payload of a linearize: the target's xyz, its six
+    covariance entries, cluster and mask, ([B,] M, 11) in its xyz dtype."""
+    dtype = prob.tgt_xyz.dtype
+    return torch.cat(
+        [prob.tgt_xyz] + [c[..., None].to(dtype) for c in _sym6(prob.tgt_cov)]
+        + [prob.tgt_cluster.to(dtype)[..., None], prob.tgt_mask.to(dtype)[..., None]],
+        dim=-1,
+    )
+
+
 def make_gicp_callbacks(prob: GICPProblem, cfg: GICPConfig):
     """Build (linearize, compute_error) for `lm_optimize` (one pair) or
     `lm_optimize_batch` (a problem with a batch axis, T (B, 4, 4))
@@ -275,15 +286,9 @@ def make_gicp_callbacks(prob: GICPProblem, cfg: GICPConfig):
     covariance, cluster and mask ride in the 1-NN kernel's payload, so the
     kernel returns them for the winning target point: one `nn1_select`
     launch per linearize, at every lane of the batch."""
-    tcov6 = _sym6(prob.tgt_cov)
     scov6 = _sym6(prob.src_cov)
     gate2 = cfg.max_correspondence_distance ** 2
-    dtype = prob.tgt_xyz.dtype
-    payload = torch.cat(
-        [prob.tgt_xyz] + [c[..., None].to(dtype) for c in tcov6]
-        + [prob.tgt_cluster.to(dtype)[..., None], prob.tgt_mask.to(dtype)[..., None]],
-        dim=-1,
-    )
+    payload = gicp_payload(prob)
 
     def linearize(T):
         moved, T = _transform(prob.src_xyz, T)

@@ -33,6 +33,14 @@ ROOT = Path(__file__).resolve().parents[1]
 PAIR_N = 4000  # points of the small synthetic pair
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jbench():
     spec = importlib.util.spec_from_file_location("root_bench", ROOT / "bench.py")
@@ -190,3 +198,33 @@ def test_bench_without_a_card_raises(monkeypatch):
     with pytest.raises(ValueError, match="not a CUDA device"):
         cli(["bench", "--device", "cpu"])
 
+
+
+def test_ndt_batch_equals_its_single_aligns_in_float64():
+    """`ndt_batch_sources` draws one float32 jitter for every dtype, and
+    the batched coarse-to-fine align of the float64 sources equals
+    `B_NDT` single aligns within 1e-9 relative, with the same outer
+    iterations per lane (the card's check in `chip_smoke.py`)."""
+    from gorio_tpu_torch.core.pointcloud import PointCloud
+    from gorio_tpu_torch.registration.ndt import ndt_align_multires
+
+    (a, _), (b, _) = tbench.synth_pair(n=PAIR_N)
+    inp = tbench.ndt_inputs(a, b, torch.device("cpu"), dtype=torch.float64)
+    srcs = tbench.ndt_batch_sources(inp.source)
+    src32 = inp.source._replace(xyz=inp.source.xyz.float())
+    m = inp.source.mask
+    jitter = (srcs.xyz - inp.source.xyz)[:, m]
+    # the same draw: the float32 sources differ only by their coordinates'
+    # rounding (one ulp at ~60 m, 3.8e-6)
+    torch.testing.assert_close(jitter.float(),
+                               (tbench.ndt_batch_sources(src32).xyz - src32.xyz)[:, m],
+                               rtol=0, atol=1e-5)
+    assert jitter.shape[0] == tbench.B_NDT and len(set(jitter[:, 0, 0].tolist())) == tbench.B_NDT
+    eye = torch.eye(4, dtype=torch.float64)
+    got = ndt_align_multires(srcs, inp.vmap_c, inp.vmap_t, eye, inp.cfg)
+    for i in range(tbench.B_NDT):
+        one = ndt_align_multires(PointCloud(*(x[i] for x in srcs)), inp.vmap_c, inp.vmap_t, eye,
+                                 inp.cfg)
+        assert int(got.iterations[i]) == int(one.iterations)
+        torch.testing.assert_close(got.T[i], one.T, rtol=1e-9, atol=1e-9)
+        torch.testing.assert_close(got.error[i], one.error, rtol=1e-9, atol=0)
