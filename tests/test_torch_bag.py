@@ -41,6 +41,9 @@ from gorio_tpu_torch.io import rosbag as tbag
 from gorio_tpu_torch.io.tum import load_tum
 
 import tool_inputs as ti
+from jax_native_build import ensure_built
+
+ensure_built()  # the JAX package's native library, built once under a lock
 
 CAP = 512
 GPS_PERIOD = 0.5  # s: six fixes over the 2.5 s between the first and last frames

@@ -48,9 +48,12 @@ from gorio_tpu.graph import sparse as jsp
 from gorio_tpu_torch.convert import config_from_dict, graph_from_numpy
 from gorio_tpu_torch.graph import solver as tsv
 from gorio_tpu_torch.graph import sparse as tsp
+from jax_native_build import ensure_built
 from test_sparse_solver import make_chain_graph
 from test_torch_planes import _frozen
 from test_torch_streaming import tiny_sequence  # noqa: F401 (a fixture)
+
+ensure_built()  # the JAX package's native library, built once under a lock
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -21,6 +21,10 @@ from gorio_tpu_torch.io import native as tnative
 from gorio_tpu_torch.io import tum as ttum
 from gorio_tpu_torch.utils.profiling import StageTimer, trace
 
+from jax_native_build import ensure_built
+
+ensure_built()  # the JAX package's native library, built once under a lock
+
 
 def _trajectory(seed, n, noise=0.0, stamp_jitter=0.0):
     rng = np.random.default_rng(seed)

@@ -39,6 +39,10 @@ from gorio_tpu_torch.core.pointcloud import make_cloud as tmake
 from gorio_tpu_torch.graph.graph import PoseGraph as TGraph
 from gorio_tpu_torch.pipeline.keyframes import KeyFrame as TKeyFrame
 
+from jax_native_build import ensure_built
+
+ensure_built()  # the JAX package's native library, built once under a lock
+
 SIM = ["--duration", "4", "--rate", "4", "--capacity", "512", "--landmarks", "3000"]
 FAMILIES = ("_between", "_priors", "_plane_priors", "_plane_plane", "_se3_plane", "_z_between",
             "_utm_align")

@@ -51,6 +51,10 @@ from gorio_tpu_torch.registration import select_registration as tselect
 from gorio_tpu_torch.registration import vgicp as tv
 from gorio_tpu_torch.registration.knn import rbf_covariances as trbf
 
+from jax_native_build import ensure_built
+
+ensure_built()  # the JAX package's native library, built once under a lock
+
 NDT_ODO = jn.NDTConfig(resolution=2.0, min_points_per_voxel=3)
 SIM = ["--duration", "4", "--rate", "4", "--capacity", "512", "--landmarks", "3000"]
 

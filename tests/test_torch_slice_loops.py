@@ -20,6 +20,10 @@ from gorio_tpu.cli import main as jax_cli
 from gorio_tpu.io.tum import load_tum
 from gorio_tpu_torch.cli import main as torch_cli
 
+from jax_native_build import ensure_built
+
+ensure_built()  # the JAX package's native library, built once under a lock
+
 CIRCUIT = ["--circuit", "--duration", "20", "--rate", "2.5", "--laps", "1.6", "--seed", "5",
            "--capacity", "512", "--landmarks", "3000"]
 # the loop gates of tests/test_loop_e2e.py: a 20 m accumulated distance

@@ -42,6 +42,10 @@ from gorio_tpu_torch.pipeline.odometry import OdometryConfig, ScanMatchingOdomet
 from gorio_tpu_torch.pipeline.slam import RadarGraphSLAM, SLAMConfig
 from gorio_tpu_torch.pipeline.streaming import StreamReport, stream_sequence
 
+from jax_native_build import ensure_built
+
+ensure_built()  # the JAX package's native library, built once under a lock
+
 CAP = 512
 STREAM = ["--rate-multiplier", "10", "--capacity", str(CAP), "--no-loops", "--no-warmup"]
 SLAM = ["--fused", "--capacity", str(CAP), "--no-loops"]

@@ -36,6 +36,10 @@ from gorio_tpu_torch.cli import main as torch_cli
 from gorio_tpu_torch.io import lz4dec as tlz4
 from gorio_tpu_torch.io.tum import load_tum, save_tum
 
+from jax_native_build import ensure_built
+
+ensure_built()  # the JAX package's native library, built once under a lock
+
 
 def _jax_json(argv):
     """Run the JAX CLI and parse its last stdout line as JSON."""

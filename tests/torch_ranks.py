@@ -4,7 +4,7 @@ through `gorio_tpu_torch.parallel.mesh.spawn`.
 A spawned rank re-imports the module of its target, and every `test_*.py`
 imports JAX, so the targets live here, in a module that imports none of it.
 Each target blocks `jax`, `jaxlib` and `gorio_tpu` with the import hook of
-`test_torch_slice.py::test_port_runs_without_jax` and returns, beside its
+`test_torch_no_jax.py::test_port_runs_without_jax` and returns, beside its
 results (`spawn` hands them back on the CPU), the names of any such module
 its process holds."""
 
