@@ -196,10 +196,10 @@ Phases, one line each (more for the tables):
                solve (on the full-circuit's first floor graph at 512 padded
                poses: its final one starts at its own optimum), and two CG solves of the circuit must agree to the
                bit; the dense Jacobi-PCG's gap to the dense Cholesky is
-               printed, with its gap to the port's CPU run of the same solve;
-               capped at 20 CG steps (before an unconverged CG's late steps
-               amplify rounding) it must equal the CPU run within 1e-6
-               relative and 1e-6 m. (`bench.py`'s batched workloads
+               printed at its default steps and capped at 20 CG steps
+               (before an unconverged CG's late steps amplify rounding),
+               where it must equal the port's CPU run of the same solve
+               within 1e-6 relative and 1e-6 m. (`bench.py`'s batched workloads
                against their loops are the bench phase's, 17.) gn:
                `gn_optimize` on APDGICP's callbacks for slice frames 40 and
                41, 8 iterations:
@@ -311,14 +311,40 @@ Phases, one line each (more for the tables):
                rounding, whatever the draws: ROADMAP C4).
                Its launches are the "bench" path. It runs first in the
                full-circuit lane, while the circuit is simulated.
+  18. evaluation — `gorio_tpu_torch/evaluation/` (the port's counterparts
+               of `scripts/`): (a) in both lanes, `recall.analyze` on the
+               circuit's and the full-circuit's keyframe stamps and loops:
+               fails on a false accept, or where its count of false accepts
+               differs from the loops' ground-truth gaps above 7 m; prints
+               recall_regions, precision and n_regions beside RECALL.json's
+               circuit2 (not held: the loop set is chaotic). (b) In a
+               third lane, `evaluation`, `accuracy.
+               run_sequence` on the accuracy straight cut to `STRAIGHT_S`
+               seconds (`simulate --rate 5 --seed 21 --stops 2 --dynamic 4
+               --gps`, the straight's `slam` flags, the CLI's capacity):
+               keyframes within 2%, no loop, ATE <= 1.25 x + 0.02 m and the
+               GPS edge count of `STRAIGHT_JAX`; its launches are the
+               "straight" path. (c) The circuit lane records its `slam`
+               with `loop_replay.capture()` (the script's wrapper of
+               `detect_batch` and `__post_init__`) and pickles the
+               recording; then the evaluation lane's `loop_replay.replay`
+               replays it on the card at the default config, which must
+               give the run's accepted loops pair for pair (the JAX
+               package's replay gives its own run back on the small loop
+               circuit, `tests/test_torch_loop_replay.py`), and with
+               `REPLAY_COMBO` of `loop_sweep.DEFAULT_COMBOS`; prints loops,
+               gate counts, false loops and region recall of each; their
+               launches are the "replay" path.
 The two sequences are simulated in child processes started at the beginning,
 beside the build and the kernel phase. Once the kernel phase has taken its
-times alone on the card, two lanes start, each a child process of this
-script (`--lane NAME`) that waits for the circuit's simulation: `circuit`
-runs phase 5, the circuit's part of phase 12 (its `sample_posterior`, the
+times alone on the card, three lanes start, each a child process of this
+script (`--lane NAME`); the first two wait for the circuit's simulation:
+`circuit` runs phase 5, the circuit's part of phase 12 (its `sample_posterior`, the
 smoother, `smc_loop_relaxation` on the card against the CPU), CG on its
-graph (phase 13) and the mesh phase (16); `full-circuit` runs the bench
-phase (17), then phase 7 and CG on its graph. The
+graph (phase 13), the mesh phase (16) and the recall of phase 18 (a);
+`full-circuit` runs the bench phase (17), then phase 7, its recall (18 a)
+and CG on its graph; `evaluation` runs phase 18 (b), then waits for the
+circuit lane's recording and replays it (18 c). The
 other phases run here meanwhile; the host threads and the card are shared,
 so each phase's wall clock includes the others' load. A lane's output is
 printed when it ends, and its failure fails the script. Each phase prints
@@ -440,6 +466,19 @@ STREAM_OPTIMIZE_EVERY = 15
 # float64), `utm-align` on the bag's ground truth and fixes, `gt-adjust`
 # (11 sampled positions) and `align-traj --scale` on the drifted circuit
 T_BASE = 1.6e9
+# The JAX package's CPU f64 record of the accuracy straight cut to
+# STRAIGHT_S seconds (`tests/jax_records.py straight OUT 10`,
+# JAX_ENABLE_X64=1: the port's `simulate --duration 10 --rate 5 --seed 21
+# --stops 2 --dynamic 4 --gps`, then the JAX CLI's `slam --fused --preprocess
+# --floor --preint ugpm --no-loops --optimize-every 15` on its reader's
+# frames as float64). 10 s keeps the phase near 40 s on the card: the 16 s
+# cut (78 frames, 54 keyframes, one GPS edge) took 74.4 s alone on an NVIDIA
+# H100 (700 W).
+STRAIGHT_S = 10
+STRAIGHT_JAX = {"keyframes": 29, "loops": [], "gps_utm_coords": 17, "gps_edges": 0,
+                "gps_near_keyframes": 17, "ate_m": 0.5730730955128794,
+                "rte_m": 1.5172060359778117}
+REPLAY_COMBO = 4  # the index in `loop_sweep.DEFAULT_COMBOS` replayed beside the default
 BAG_JAX = {"keyframes": 80, "loops": [], "gps_edges": 7, "gps_utm_coords": 7,
            "gps_near_keyframes": 18, "ate_m": 0.014386889696969793, "rte_m": 0.023770986984932466,
            "first_stamp": 1600000000.2}
@@ -1056,11 +1095,11 @@ def loop_gaps(seq, slam):
     the keyframe stamps (as scripts/recall_benchmark.py measures it)."""
     import numpy as np
 
-    from gorio_tpu_torch.io.tum import load_tum
+    from gorio_tpu_torch.evaluation.sequence import gt_positions
 
-    gs, gp = load_tum(seq / "groundtruth.tum")
+    gs, gt_pos = gt_positions(seq)
     stamps = np.asarray([kf.stamp for kf in slam.keyframes])
-    pos = np.stack([np.interp(stamps, gs, gp[:, k, 3]) for k in range(3)], axis=1)
+    pos = np.stack([np.interp(stamps, gs, gt_pos[:, k]) for k in range(3)], axis=1)
     return [float(np.linalg.norm(pos[l.key_new] - pos[l.key_old])) for l in slam.loops]
 
 
@@ -2019,34 +2058,33 @@ def cg_graph_phase(what, graph_cfg):
 
 def cg_full_slice_phase(graph_cfg):
     """The dense Jacobi-PCG against the dense Cholesky on the full-slice's
-    floor graph, and against the port's CPU run of the same solve."""
+    floor graph at its default steps and at `CG_CPU_STEPS`, and the latter
+    against the port's CPU run of the same solve."""
     from gorio_tpu_torch.graph.solver import optimize_graph_with_planes
 
     *graph, cfg = graph_cfg
     what = f"full-slice ({graph[0].shape[0]} padded poses, dense)"
     ref, s_ref = _sync_s(lambda: optimize_graph_with_planes(*graph, cfg._replace(solver="dense")))
     _solve_line(what, "dense", ref, s_ref)
-    cpu_graph = _cpu_tree(graph)
     for cg_iters in (cfg.cg_iters, CG_CPU_STEPS):
         ccfg = cfg._replace(solver="cg", cg_iters=cg_iters)
         cg, s_cg = _sync_s(lambda: optimize_graph_with_planes(*graph, ccfg))
         _solve_line(what, f"cg ({cg_iters} steps at most)", cg, s_cg)
         dt, dr = _pose_gap(cg.poses, ref.poses)
-        t0 = time.perf_counter()
-        cpu = optimize_graph_with_planes(*cpu_graph, ccfg)
-        s_cpu = time.perf_counter() - t0
-        rel = abs(float(cg.chi2) - float(cpu.chi2)) / abs(float(cpu.chi2))
-        dtc, drc = _pose_gap(cg.poses.cpu(), cpu.poses)
-        held = cg_iters == CG_CPU_STEPS
         print(f"[cg-graphs] full-slice, Jacobi-PCG of {cg_iters} steps: against the dense "
               f"Cholesky chi2 {float(cg.chi2) / float(ref.chi2) - 1:.3g} relative, poses "
-              f"{dt:.3g} m / {dr:.3g}; the card against the CPU ({int(cpu.iterations)} LM "
-              f"iterations, {s_cpu:.1f} s there) chi2 {rel:.3g} relative, poses {dtc:.3g} m / "
-              f"{drc:.3g} ({'held' if held else 'printed, not held'})", flush=True)
-        if held and not (rel <= CG_CPU_CHI2_RTOL and dtc <= CG_CPU_POSE_M
-                         and drc <= CG_CPU_POSE_M):
-            fail(f"full-slice: the card's CG ends chi2 {rel:.3g} relative and {dtc:.3g} m / "
-                 f"{drc:.3g} from the CPU's (limits {CG_CPU_CHI2_RTOL}, {CG_CPU_POSE_M} m)")
+              f"{dt:.3g} m / {dr:.3g}", flush=True)
+    t0 = time.perf_counter()
+    cpu = optimize_graph_with_planes(*_cpu_tree(graph), ccfg)
+    s_cpu = time.perf_counter() - t0
+    rel = abs(float(cg.chi2) - float(cpu.chi2)) / abs(float(cpu.chi2))
+    dtc, drc = _pose_gap(cg.poses.cpu(), cpu.poses)
+    print(f"[cg-graphs] full-slice, Jacobi-PCG of {CG_CPU_STEPS} steps: the card against the CPU "
+          f"({int(cpu.iterations)} LM iterations, {s_cpu:.1f} s there) chi2 {rel:.3g} relative, "
+          f"poses {dtc:.3g} m / {drc:.3g} (held)", flush=True)
+    if not (rel <= CG_CPU_CHI2_RTOL and dtc <= CG_CPU_POSE_M and drc <= CG_CPU_POSE_M):
+        fail(f"full-slice: the card's CG ends chi2 {rel:.3g} relative and {dtc:.3g} m / "
+             f"{drc:.3g} from the CPU's (limits {CG_CPU_CHI2_RTOL}, {CG_CPU_POSE_M} m)")
 
 
 def _rate_line(what, unit, n, s_batch, s_loop, err, dtype, extra="", limit=None):
@@ -2880,6 +2918,128 @@ def bench_phase(K):
     return launches
 
 
+# ---- evaluation ------------------------------------------------------------
+
+
+def recall_phase(what, seq, slam):
+    """(a) `evaluation.recall.analyze` on a run's own keyframe stamps and
+    loops: no false accept, and as many false accepts as loops whose
+    ground-truth gap passes `FALSE_RADIUS_M`; recall and precision printed
+    beside RECALL.json's circuit2 (the JAX package's record of the paper's
+    configuration on this circuit), not held."""
+    from gorio_tpu_torch.evaluation.recall import analyze
+    from gorio_tpu_torch.evaluation.sequence import gt_positions
+
+    gs, gt_pos = gt_positions(seq)
+    res = analyze([kf.stamp for kf in slam.keyframes],
+                  [(l.key_new, l.key_old, float(l.fitness)) for l in slam.loops], gs, gt_pos)
+    by_gaps = sum(g > FALSE_RADIUS_M for g in loop_gaps(seq, slam))
+    rec = json.loads((ROOT / "RECALL.json").read_text())["circuit2"]
+    keys = ("n_regions", "n_regions_covered", "recall_regions", "recall_key_new_only",
+            "precision", "n_true_accepts", "n_false_accepts")
+    print(f"[recall {what}] " + ", ".join(f"{k} {res[k]}" for k in keys) + " (RECALL.json "
+          "circuit2, JAX CPU f64 on float32 frames: " + ", ".join(f"{k} {rec[k]}" for k in keys)
+          + ")", flush=True)
+    if res["n_false_accepts"] != by_gaps:
+        fail(f"recall {what}: {res['n_false_accepts']} false accepts, {by_gaps} loops' ground-"
+             f"truth gaps over {FALSE_RADIUS_M} m")
+    if res["n_false_accepts"]:
+        fail(f"recall {what}: {res['n_false_accepts']} false accepts")
+    return res
+
+
+def straight_phase(K, tmp):
+    """(b) `evaluation.accuracy.run_sequence` on the straight cut to
+    `STRAIGHT_S` seconds, held to `STRAIGHT_JAX`."""
+    import numpy as np
+
+    from gorio_tpu_torch.evaluation import accuracy
+
+    spec = dict(accuracy.SEQUENCES["straight"], name="straight")
+    sim = list(spec["simulate"])
+    sim[sim.index("--duration") + 1] = str(STRAIGHT_S)
+    spec["simulate"] = sim
+    runs = []
+    K.reset_launch_counts()
+    res = accuracy.run_sequence(spec, workdir=str(tmp / "straight-run"), device="cuda", runs=runs)
+    launches = dict(K.launch_counts)
+    run = runs[0]
+    slam = run.slam
+    stamps = np.asarray([kf.stamp for kf in slam.keyframes])
+    fix_t = np.load(run.ds / "gps.npz")["t"]
+    gates = {"gps_utm_coords": sum(kf.utm_coord is not None for kf in slam.keyframes),
+             "gps_edges": sum(bool(getattr(kf, "_gps_edge", False)) for kf in slam.keyframes),
+             "gps_near_keyframes": int((np.abs(fix_t[None, :] - stamps[:, None]).min(axis=1)
+                                        <= 0.2).sum())}
+    rec = STRAIGHT_JAX
+    ate_max = 1.25 * rec["ate_m"] + 0.02
+    print(f"[straight] {CARD}: {STRAIGHT_S} s, frames {run.timing['n_frames']}, {res}, GPS "
+          f"{gates}, launches {launches}, slam wall {run.wall_s:.2f} s "
+          f"({run.timing['n_frames'] / run.wall_s:.2f} frames/s); JAX CPU f64 {rec}", flush=True)
+    if abs(res["n_keyframes"] - rec["keyframes"]) > 0.02 * rec["keyframes"]:
+        fail(f"straight: {res['n_keyframes']} keyframes, the JAX record {rec['keyframes']} +- 2%")
+    if res["n_loops"] != len(rec["loops"]):
+        fail(f"straight: {res['n_loops']} loops with --no-loops")
+    if not res["ate_rmse_m"] <= ate_max:
+        fail(f"straight: ATE {res['ate_rmse_m']} m > {ate_max:.4f} m (1.25 x the JAX record + "
+             "0.02 m)")
+    if gates["gps_edges"] != rec["gps_edges"]:
+        fail(f"straight: {gates['gps_edges']} GPS edges, the JAX record {rec['gps_edges']}")
+    if not (launches["nn1"] and launches["nn1_select"]):
+        fail(f"straight: a kernel was not launched ({launches})")
+    return launches
+
+
+def record_circuit(tmp, cap, seq, slam):
+    """(c), in the circuit lane: the recording of its `slam`, pickled and
+    shared with the evaluation lane."""
+    import pickle
+
+    from gorio_tpu_torch.evaluation import loop_replay
+
+    rec = loop_replay.recording(cap, "circuit", seq, slam)
+    path = tmp / "circuit-recording.pkl"
+    with open(path, "wb") as fh:
+        pickle.dump(rec, fh)
+    print(f"[replay] recorded {len(rec['cycles'])} detect_batch cycles, {len(rec['clouds'])} "
+          f"clouds, {path.stat().st_size / 2**20:.1f} MiB", flush=True)
+    share(tmp, "circuit-recording", {"path": str(path)})
+
+
+def replay_phase(K, tmp):
+    """(c), in the evaluation lane: the circuit's recording replayed on the
+    card at the default config (the run's loops pair for pair) and with
+    `REPLAY_COMBO`."""
+    import pickle
+
+    from gorio_tpu_torch.evaluation import loop_replay, loop_sweep
+
+    with open(shared(tmp, "circuit-recording")["path"], "rb") as fh:
+        rec = pickle.load(fh)
+    K.reset_launch_counts()
+    lines = {}
+    for name, ov in (("default", {}), ("combo", loop_sweep.DEFAULT_COMBOS[REPLAY_COMBO])):
+        t0 = time.perf_counter()
+        det, loops = loop_replay.replay(rec, ov, device="cuda")
+        wall = time.perf_counter() - t0
+        lines[name] = (det, loops, loop_replay.summary(rec, det, loops))
+        print(f"[replay {name}] {CARD}: overrides {ov}, {wall:.2f} s, "
+              f"{json.dumps(lines[name][2])}", flush=True)
+    launches = dict(K.launch_counts)
+    det, loops, summ = lines["default"]
+    got = [[l.key_new, l.key_old] for l in loops]
+    want = [l[:2] for l in rec["loops_real"]]
+    fits = [round(float(l.fitness), 4) for l in loops]
+    print(f"[replay default] the run's loops {rec['loops_real']}, replayed fitness {fits}; gate "
+          f"counts {'equal to' if det.gate_counts == rec['gate_counts_real'] else 'unlike'} the "
+          f"run's {rec['gate_counts_real']}; launches {launches}", flush=True)
+    if got != want:
+        fail(f"replay: the default config gives loops {got}, the run accepted {want}")
+    if not (launches["nn1"] and launches["nn1_select"]):
+        fail(f"replay: a kernel was not launched ({launches})")
+    return launches
+
+
 # ---- lanes -----------------------------------------------------------------
 
 # The phases of the two circuit runs go in child processes of their own
@@ -2937,12 +3097,18 @@ def wait_simulation(tmp, what):
 
 
 def circuit_lane(K, tmp):
-    """The circuit's `slam`, its posterior and smoother, CG on its final
-    graph, and the mesh phase on the circuit's graphs."""
+    """The circuit's `slam` (its loop detector recorded for the replay),
+    its recall, its posterior and smoother, CG on its final graph, and the
+    mesh phase on the circuit's graphs."""
+    from gorio_tpu_torch.evaluation import loop_replay
+
     seq = tmp / "circuit"
     wait_simulation(tmp, "circuit")
     launches = {}
-    launches["circuit"], slam, graph = timed("circuit", circuit_phase, K, seq, tmp)
+    with loop_replay.capture() as cap:
+        launches["circuit"], slam, graph = timed("circuit", circuit_phase, K, seq, tmp)
+    timed("record circuit", record_circuit, tmp, cap, seq, slam)
+    timed("recall circuit", recall_phase, "circuit", seq, slam)
     launches["posterior"], circuit = timed("circuit-posterior", circuit_posterior_phase, K,
                                            slam, seq)
     timed("cg-graphs circuit", cg_graph_phase, "circuit", graph)
@@ -2952,17 +3118,26 @@ def circuit_lane(K, tmp):
 
 def full_circuit_lane(K, tmp):
     """The bench phase while the circuit is simulated, then the circuit with
-    the paper's configuration, and CG on its first floor graph at 512
-    padded poses."""
+    the paper's configuration, its recall, and CG on its first floor graph
+    at 512 padded poses."""
     seq = tmp / "circuit"
     bench_launches = timed("bench", bench_phase, K)
     wait_simulation(tmp, "circuit")
-    launches, _, graph = timed("full-circuit", full_circuit_phase, K, seq, tmp)
+    launches, slam, graph = timed("full-circuit", full_circuit_phase, K, seq, tmp)
+    timed("recall full-circuit", recall_phase, "full-circuit", seq, slam)
     timed("cg-graphs full-circuit", cg_graph_phase, "full-circuit", graph)
     return {"bench": bench_launches, "full-circuit": launches}
 
 
-LANES = {"circuit": circuit_lane, "full-circuit": full_circuit_lane}
+def evaluation_lane(K, tmp):
+    """The shortened straight, then the circuit lane's recording replayed."""
+    launches = {"straight": timed("straight", straight_phase, K, tmp)}
+    launches["replay"] = timed("replay", replay_phase, K, tmp)
+    return launches
+
+
+LANES = {"circuit": circuit_lane, "full-circuit": full_circuit_lane,
+         "evaluation": evaluation_lane}
 LANES_PRINTED = set()  # the lanes whose output this process has printed
 
 

@@ -15,6 +15,8 @@ package's own run on the same input:
   python tests/jax_records.py bag SEQ OUT       # convert-bag -> slam -> evaluate
   python tests/jax_records.py utm-align BAGDIR  # `utm-align` on the bag's fixes
   python tests/jax_records.py gt-adjust OUT     # `gt-adjust` and `align-traj`
+  python tests/jax_records.py straight OUT DURATION  # a shortened accuracy straight
+  python tests/jax_records.py recall NAME OUT   # a recall sequence, float64 frames
 
 `scan-to-map` runs `ScanMatchingOdometry(OdometryConfig(
 enable_scan_to_map=True, registration=r))` for r in ndt and apdgicp over a
@@ -91,9 +93,23 @@ runs the JAX CLI's `gt-adjust` with its identity loops (1,250 poses, dense)
 and `align-traj --scale` of the drifted trajectory onto the truth, and
 prints both JSON lines, the end gaps and sampled poses.
 
+`straight` writes `scripts/accuracy_benchmark.py`'s straight cut to
+DURATION seconds (`simulate --duration DURATION --rate 5 --seed 21 --stops
+2 --dynamic 4 --gps`, the port's simulator) to OUT/seq and runs the JAX
+CLI's `slam` with the straight's flags (`--fused --preprocess --floor
+--preint ugpm --no-loops --optimize-every 15`; its reader's frames handed
+over as float64, as the port's CLI uploads them), printing the keyframes,
+loops, GPS gate counts and `evaluate`'s ATE and RTE.
+
+`recall` runs `scripts/recall_benchmark.py`'s sequence NAME (circuit2,
+circuit3, figure8: the port's simulator) with its `slam` flags through the
+JAX CLI on its reader's frames handed over as float64, and prints the
+script's `analyze` of its keyframes and loops, each loop's ground-truth
+endpoint gap, the gate counts, ATE and RTE.
+
 Run with `PYTHONPATH= JAX_PLATFORMS=cpu` from the repository root; the
-scan-to-map, candidates, posterior, smoother, bag, utm-align and gt-adjust
-records need `JAX_ENABLE_X64=1`.
+scan-to-map, candidates, posterior, smoother, bag, utm-align, gt-adjust,
+straight and recall records need `JAX_ENABLE_X64=1`.
 """
 
 from __future__ import annotations
@@ -599,6 +615,99 @@ def gt_adjust(out):
     main(["align-traj", str(out / "drifty.tum"), str(out / "circuit_gt.tum"), "--scale"])
 
 
+def straight(out, duration):
+    """The JAX CLI's `slam` on a shortened accuracy straight, float64 frames."""
+    import jax
+
+    import gorio_tpu.cli as cli
+    import gorio_tpu.io.native as jnative
+    import gorio_tpu.pipeline.slam as slam_mod
+    from gorio_tpu.io.tum import ate_rmse, load_tum, rte
+    from gorio_tpu_torch.cli import main as torch_cli
+
+    assert jax.config.jax_enable_x64, "run with JAX_ENABLE_X64=1"
+    out = Path(out)
+    torch_cli(["simulate", "--output", str(out / "seq"), "--duration", duration, "--rate", "5",
+               "--seed", "21", "--stops", "2", "--dynamic", "4", "--gps"])
+    made = []
+
+    class Caught(slam_mod.RadarGraphSLAM):
+        def __post_init__(self):
+            super().__post_init__()
+            made.append(self)
+
+    class Float64Frames(jnative.NativePipelineDataset):
+        def __next__(self):
+            stamp, n, packed = super().__next__()
+            return stamp, n, np.asarray(packed, np.float64)
+
+    slam_mod.RadarGraphSLAM = Caught
+    jnative.NativePipelineDataset = Float64Frames
+    t0 = time.perf_counter()
+    cli.main(["slam", "--dataset", str(out / "seq"), "--output", str(out / "est.tum"),
+              "--fused", "--preprocess", "--floor", "--preint", "ugpm", "--no-loops",
+              "--optimize-every", "15"])
+    wall = time.perf_counter() - t0
+    slam = made[0]
+    es, ep = load_tum(out / "est.tum")
+    gs, gp = load_tum(out / "seq" / "groundtruth.tum")
+    print(json.dumps({"keyframes": len(slam.keyframes),
+                      "loops": [[int(l.key_new), int(l.key_old), round(float(l.fitness), 4)]
+                                for l in slam.loops],
+                      **_tool_inputs().gps_gates(slam, np.load(out / "seq" / "gps.npz")["t"]),
+                      "ate_m": ate_rmse(es, ep, gs, gp), "rte_m": rte(es, ep, gs, gp),
+                      "wall_s": wall}), flush=True)
+
+
+def recall(name, out):
+    """The JAX CLI's `slam` on a recall sequence, float64 frames, analysed."""
+    import jax
+
+    import gorio_tpu.cli as cli
+    import gorio_tpu.io.native as jnative
+    import gorio_tpu.pipeline.slam as slam_mod
+    from gorio_tpu.io.tum import ate_rmse, load_tum, rte
+    from gorio_tpu_torch.cli import main as torch_cli
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import recall_benchmark as rb
+
+    assert jax.config.jax_enable_x64, "run with JAX_ENABLE_X64=1"
+    out = Path(out)
+    torch_cli(["simulate", "--output", str(out / "seq"), *rb.SEQUENCES[name]["simulate"]])
+    made = []
+
+    class Caught(slam_mod.RadarGraphSLAM):
+        def __post_init__(self):
+            super().__post_init__()
+            made.append(self)
+
+    class Float64Frames(jnative.NativePipelineDataset):
+        def __next__(self):
+            stamp, n, packed = super().__next__()
+            return stamp, n, np.asarray(packed, np.float64)
+
+    slam_mod.RadarGraphSLAM = Caught
+    jnative.NativePipelineDataset = Float64Frames
+    t0 = time.perf_counter()
+    cli.main(["slam", "--dataset", str(out / "seq"), "--output", str(out / "est.tum"),
+              *rb.SLAM_ARGS])
+    wall = time.perf_counter() - t0
+    slam = made[0]
+    es, ep = load_tum(out / "est.tum")
+    gs, gp = load_tum(out / "seq" / "groundtruth.tum")
+    stamps = [kf.stamp for kf in slam.keyframes]
+    loops = [(int(l.key_new), int(l.key_old), round(float(l.fitness), 4)) for l in slam.loops]
+    pos = rb.gt_at(np.asarray(stamps), gs, gp[:, :3, 3])
+    print(json.dumps({"name": name, **rb.analyze(stamps, loops, gs, gp[:, :3, 3]),
+                      "loops": loops,
+                      "loop_gaps_m": [round(float(np.linalg.norm(pos[i] - pos[j])), 3)
+                                      for i, j, _ in loops],
+                      "gate_counts": slam.loop_detector.gate_counts,
+                      "ate_m": ate_rmse(es, ep, gs, gp), "rte_m": rte(es, ep, gs, gp),
+                      "wall_s": wall}), flush=True)
+
+
 def candidates_diff(a, b):
     """Print where two `candidates` records differ."""
     ra, rb = (json.loads(Path(p).read_text()) for p in (a, b))
@@ -633,5 +742,5 @@ if __name__ == "__main__":
     else:
         {"scan-to-map": scan_to_map, "align": align, "slice-map": slice_map,
          "cg-slice": cg_slice, "bag": bag, "utm-align": utm_align,
-         "gt-adjust": gt_adjust}[sys.argv[1]](
+         "gt-adjust": gt_adjust, "straight": straight, "recall": recall}[sys.argv[1]](
             *sys.argv[2:])

@@ -6,7 +6,13 @@ public class, of `gorio_tpu/<m>.py` has a namesake in
 its counterpart. What has no counterpart by design is in `EXCEPTIONS`, each
 with its reason; a JAX `key` or `rng` parameter is replaced by a
 `torch.Generator` (`generator`) or by the draws as tensors, since
-`jax.random` cannot be reproduced."""
+`jax.random` cannot be reproduced.
+
+The repo's evaluation drivers in `scripts/` are held the same way: each
+ported script's public names and parameters exist in its module under
+`gorio_tpu_torch/evaluation/` (`SCRIPTS`); the scripts not ported yet are
+listed in `SCRIPTS_LATER` with their ROADMAP item, so that a script added
+without a counterpart fails."""
 
 import ast
 from pathlib import Path
@@ -15,6 +21,26 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 JAX, PORT = ROOT / "gorio_tpu", ROOT / "gorio_tpu_torch"
+SCRIPTS = {
+    "recall_benchmark.py": "evaluation/recall.py",
+    "accuracy_benchmark.py": "evaluation/accuracy.py",
+    "loop_replay.py": "evaluation/loop_replay.py",
+    "loop_sweep.py": "evaluation/loop_sweep.py",
+    "stream_benchmark.py": "evaluation/stream.py",
+    "graph_baseline.py": "evaluation/graph_baseline.py",
+}
+# scripts still to port, each with its ROADMAP item (Queue A, A20)
+SCRIPTS_LATER = {
+    "bench_scaling.py": "A20.1",
+    "demo_multihost.py": "A20.2",
+    "profile_ndt.py": "A20.3",
+    "profile_linearize.py": "A20.4",
+    "profile_graph_solve.py": "A20.5",
+    "profile_ugpm.py": "A20.5",
+    "profile_ugpm2.py": "A20.5",
+    "make_ugpm_golden.py": "A20.6",
+    "diagnose_dispatch_poison.py": "A20.7",
+}
 RANDOM_KEYS = {"key", "rng"}  # replaced by `generator` or explicit draws
 # the port module that holds a JAX module's names, where the file differs
 MODULES = {"ops/nn_pallas.py": "ops/nn.py"}
@@ -91,3 +117,30 @@ def test_every_exception_is_still_needed():
             assert name not in port, (module, name)
         else:
             assert param in jax_names[name] and param not in port[name], (module, name, param)
+
+
+def test_every_script_is_ported_or_listed():
+    """Each `scripts/*.py` is in `SCRIPTS` or in `SCRIPTS_LATER`, not both,
+    and ROADMAP.md names every item of `SCRIPTS_LATER`."""
+    have = {p.name for p in (ROOT / "scripts").glob("*.py")}
+    assert not set(SCRIPTS) & set(SCRIPTS_LATER)
+    assert have == set(SCRIPTS) | set(SCRIPTS_LATER), have ^ (set(SCRIPTS) | set(SCRIPTS_LATER))
+    roadmap = (ROOT / "ROADMAP.md").read_text()
+    for script, item in SCRIPTS_LATER.items():
+        assert item in roadmap and script in roadmap, (script, item)
+
+
+@pytest.mark.parametrize("script", sorted(SCRIPTS))
+def test_every_script_name_has_a_counterpart(script):
+    """Every public function, class and method of the script, and every
+    parameter, in its port under `gorio_tpu_torch/evaluation/`."""
+    port_file = PORT / SCRIPTS[script]
+    assert port_file.is_file(), f"no gorio_tpu_torch/{SCRIPTS[script]}"
+    port = _public(port_file)
+    missing = []
+    for name, params in _public(ROOT / "scripts" / script).items():
+        if name not in port:
+            missing.append(name)
+            continue
+        missing += [f"{name}({p}=)" for p in params or () if p not in port[name]]
+    assert not missing, f"scripts/{script}: no counterpart in the port for {missing}"

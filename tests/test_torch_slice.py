@@ -115,10 +115,11 @@ def _imported_modules(path):
     if "_build" not in p.relative_to(ROOT).parts))  # build output, not the port
 def test_port_imports_nothing_of_the_jax_package(path):
     """No module of the port, and not chip_smoke.py, imports jax, jaxlib or
-    the JAX package (`gorio_tpu`, numpy-only modules included), at any
-    depth of the code."""
+    the JAX package (`gorio_tpu`, numpy-only modules included), nor the
+    repo's `scripts/` or root `bench.py` (which import it), at any depth of
+    the code."""
     bad = [m for m in _imported_modules(ROOT / path)
-           if m.split(".")[0] in ("jax", "jaxlib", "gorio_tpu")]
+           if m.split(".")[0] in ("jax", "jaxlib", "gorio_tpu", "scripts", "bench")]
     assert not bad, f"{path} imports {bad}"
 
 
