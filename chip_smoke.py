@@ -335,6 +335,28 @@ Phases, one line each (more for the tables):
                `REPLAY_COMBO` of `loop_sweep.DEFAULT_COMBOS`; prints loops,
                gate counts, false loops and region recall of each; their
                launches are the "replay" path.
+  19. scripts — the rest of `scripts/` as `gorio_tpu_torch/evaluation/`
+               modules, in the evaluation lane between 18 (b) and (c), each
+               at its script's widths with the repetitions cut
+               (`SCRIPTS_DEPTH`): `scaling` over worlds `SCALING_NS`
+               (NCCL at 1, gloo ranks sharing cuda:0 above; every row of
+               the script's keys, finite, both kernels launched: the
+               "scaling" path); `multihost`, two OS processes over TCP
+               (gloo on cuda:0): both ranks' ESS equal, within 1e-5, to
+               the plain ESS of the demo's population (numpy, float64:
+               the normalised weights of -0.5 |x|^2, 1 / sum w^2);
+               `ugpm_golden` in float64 on
+               the card, every check of `tests/test_ugpm_golden.py` within
+               its tolerance against `tests/golden/ugpm_golden.npz`; the
+               four profilers (`profile_linearize`, whose launches are the
+               "profile_linearize" path, `profile_ndt`,
+               `profile_graph_solve`, `profile_ugpm`): host and device ms
+               per call, finite; `dispatch`: the four probes' aligns/s
+               and the allocator's MiB, `nn1_select` launched (the
+               "dispatch" path). A failed rank, a failed multihost
+               assertion or a golden value off its tolerance fails the
+               run. The kernel phase holds both kernels at
+               `profile_linearize`'s call (N = M = 4096, f32) too.
 The two sequences are simulated in child processes started at the beginning,
 beside the build and the kernel phase. Once the kernel phase has taken its
 times alone on the card, three lanes start, each a child process of this
@@ -343,8 +365,8 @@ script (`--lane NAME`); the first two wait for the circuit's simulation:
 smoother, `smc_loop_relaxation` on the card against the CPU), CG on its
 graph (phase 13), the mesh phase (16) and the recall of phase 18 (a);
 `full-circuit` runs the bench phase (17), then phase 7, its recall (18 a)
-and CG on its graph; `evaluation` runs phase 18 (b), then waits for the
-circuit lane's recording and replays it (18 c). The
+and CG on its graph; `evaluation` runs phase 18 (b) and phase 19, then
+waits for the circuit lane's recording and replays it (18 c). The
 other phases run here meanwhile; the host threads and the card are shared,
 so each phase's wall clock includes the others' load. A lane's output is
 printed when it ends, and its failure fails the script. Each phase prints
@@ -386,6 +408,8 @@ BENCH_APD = ("bench APDGICP: (4096, 3) f32 source as query, f32 target and its m
              "the linearize's f32 P=11 payload")
 BENCH_VERIFY = ("bench verification: B=8 pairs of (1024, 3) f32, the linearize's f32 P=11 "
                 "payload")
+PROFILE_LIN = ("profile_linearize: N = M = 4096 f32 (`profile_linearize.problem`), the "
+               "linearize's f32 P=11 payload")
 CIRCUIT_SIM = ["--duration", "75", "--rate", "5", "--seed", "22", "--circuit", "--laps", "2",
                "--dynamic", "2"]
 # The JAX package's record of the same commands (`python -m gorio_tpu.cli`,
@@ -584,53 +608,32 @@ def check_pair(name, q, r, mask, got, want, split=None):
 def call_ms(fn, repeats=50, warmup=5):
     """Median time of one call, CUDA events around each: the wrapper's host
     work between the events counts."""
-    import torch
+    from gorio_tpu_torch.utils.profiling import events_ms
 
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(repeats):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return statistics.median(events_ms(fn) for _ in range(repeats))
 
 
 def per_launch_ms(fn, launches=100, warmup=10):
     """One pair of CUDA events around `launches` back-to-back calls, after a
     warm-up; the time per call."""
     import torch
+    from gorio_tpu_torch.utils.profiling import events_ms
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(launches):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / launches
+    return events_ms(fn, launches) / launches
 
 
 def device_kernels(fn, calls):
     """(name, device us) of every device activity (kernel, copy, memset)
     that `calls` calls of `fn` put on the card, under torch.profiler."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from gorio_tpu_torch.utils.profiling import device_activities
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return [(e.name, e.device_time_total) for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
+    return device_activities(lambda: [fn() for _ in range(calls)])
 
 
 def bound(q, r, mask, payload, sel):
@@ -654,6 +657,7 @@ def kernel_phase(K):
     import torch
 
     from gorio_tpu_torch import bench
+    from gorio_tpu_torch.evaluation import profile_linearize
 
     f32, f64 = torch.float32, torch.float64
     dev = torch.device("cuda")
@@ -694,6 +698,7 @@ def kernel_phase(K):
     cases[ALIGN] = align_inputs(g)
     cases[BENCH_APD] = bench_gicp_inputs(*bench.apdgicp_pair(dev))
     cases[BENCH_VERIFY] = bench_gicp_inputs(*bench.verify_pairs(dev))
+    cases[PROFILE_LIN] = bench_gicp_inputs(*profile_linearize.problem(dev)[:2])
 
     errs = {}
     for label, (q, r, m, p) in cases.items():
@@ -3040,6 +3045,132 @@ def replay_phase(K, tmp):
     return launches
 
 
+# ---- scripts ---------------------------------------------------------------
+
+# n <= 4: with n = 8 as well this script took 655.7 s on an H100; the module alone runs 1-8
+SCALING_NS = (1, 2, 4)
+# repetitions cut to fit the lane; the widths are the scripts'
+SCRIPTS_DEPTH = dict(
+    scaling={"smc_step": 3, "ugpm_fit": 1, "apdgicp_pairs_dp": 1, "apdgicp_mp_strong": 1,
+             "graph_solve": 1},
+    profile_linearize=dict(ch=20, reps=2), profile_ndt=dict(reps=1),
+    # K = 1,024 left out: its PCG and full solve take minutes alone
+    profile_graph_solve=dict(ks=(256,), reps=1, cg_reps=1),
+    profile_ugpm=dict(reps=1, n_batches=2),
+    dispatch=dict(reps=5))
+
+
+def _finite_ms(what, rows):
+    """Fail unless every split row has a finite, positive host time and a
+    device time (the profiler saw the card)."""
+    import math
+
+    for name, row in rows.items():
+        if not (math.isfinite(row["host_ms"]) and row["host_ms"] > 0
+                and row["device_ms"] is not None and math.isfinite(row["device_ms"])):
+            fail(f"{what}: {name}: {row}")
+
+
+def scaling_check(K):
+    from gorio_tpu_torch.evaluation import scaling
+
+    def log(*a, **k):
+        print(*a, flush=True)
+
+    results, _, what = scaling.main(SCALING_NS, "cuda", SCRIPTS_DEPTH["scaling"], log=log)
+    if len(results) != len(SCALING_NS) * len(scaling.REPS):
+        fail(f"scaling: {len(results)} rows for worlds {SCALING_NS}")
+    bad = [r for r in results
+           if not all(isinstance(v, str) or (v == v and v > 0) for v in r.values())]
+    if bad:
+        fail(f"scaling: rows not finite and positive: {bad}")
+    launches = {k: sum(c[k] for c in what["launches"].values()) for k in ("nn1", "nn1_select")}
+    print(f"[scaling] {CARD}: worlds {SCALING_NS}, n <= 4 (n = 8 left out of the lane, so "
+          f"that it does not outlast the circuit lane) ({what['backend']}) in "
+          f"{ {n: round(s, 1) for n, s in what['wall_s'].items()} } s, repetitions "
+          f"{SCRIPTS_DEPTH['scaling']} (the script's: {scaling.REPS}); launches {launches}",
+          flush=True)
+    if not (launches["nn1"] and launches["nn1_select"]):
+        fail(f"scaling: a kernel was not launched ({launches})")
+    return launches
+
+
+def plain_ess(particles, log_weights):
+    """The ESS of a population weighed by N(0, I), in numpy float64: the
+    normalised weights w of log_weights - 0.5 |x|^2, then 1 / sum w^2."""
+    import numpy as np
+
+    lw = log_weights.astype(np.float64) - 0.5 * np.sum(particles.astype(np.float64) ** 2, -1)
+    w = np.exp(lw - lw.max())
+    w /= w.sum()
+    return float(1.0 / np.sum(w * w))
+
+
+def multihost_check():
+    from gorio_tpu_torch.evaluation import multihost
+
+    want = plain_ess(*multihost.population())
+    res = multihost.driver(device="cuda", log=lambda *a: print(*a, flush=True))
+    if not res["ok"]:
+        fail(f"multihost: {res}")
+    print(f"[multihost] plain ESS {want!r}", flush=True)
+    for rank, ess in res["ess"].items():
+        if abs(ess - want) > 1e-5 * want:
+            fail(f"multihost: rank {rank} ESS {ess!r}, the plain ESS {want!r}")
+
+
+def golden_check():
+    from gorio_tpu_torch.evaluation import ugpm_golden
+
+    res = ugpm_golden.main("cuda", golden=ugpm_golden.GOLDEN,
+                           log=lambda *a: print(*a, flush=True))
+    off = {k: v for k, v in res["gaps"].items() if not v <= 1.0}
+    if off:
+        fail(f"ugpm_golden: off the fixture's tolerances (error / tolerance): {off}")
+
+
+def scripts_phase(K):
+    """Phase 19: the rest of `scripts/` on the card; returns the launches of
+    the paths that reach the kernels."""
+    from gorio_tpu_torch.evaluation import (dispatch, profile_graph_solve, profile_linearize,
+                                            profile_ndt, profile_ugpm)
+
+    def log(*a):
+        print(*a, flush=True)
+
+    d = SCRIPTS_DEPTH
+    launches = {"scaling": timed("scaling", scaling_check, K)}
+    timed("multihost", multihost_check)
+    timed("ugpm-golden", golden_check)
+    res = timed("profile_linearize", profile_linearize.main, "cuda", log=log,
+                **d["profile_linearize"])
+    _finite_ms("profile_linearize", res["components"])
+    launches["profile_linearize"] = res["launches"]
+    if not (res["launches"]["nn1"] and res["launches"]["nn1_select"]):
+        fail(f"profile_linearize: a kernel was not launched ({res['launches']})")
+    res = timed("profile_ndt", profile_ndt.main, "cuda", log=log, **d["profile_ndt"])
+    _finite_ms("profile_ndt", res["components"])
+    if not (res["align_iterations"] >= 1 and res["align_score"] < 0):
+        fail(f"profile_ndt: align {res['align_iterations']} iterations, score "
+             f"{res['align_score']}")
+    res = timed("profile_graph_solve", profile_graph_solve.main, "cuda", log=log,
+                **d["profile_graph_solve"])
+    for k, row in res["K"].items():
+        _finite_ms(f"profile_graph_solve K={k}", {n: row[n] for n in (
+            "build", "cg20", "cg100", "tridiag_factor", "tridiag_solve")})
+        if not (row["cg100"]["rel_residual"] < 1e-3 and row["full_solve"]["iterations"] >= 1):
+            fail(f"profile_graph_solve K={k}: {row['cg100']}, {row['full_solve']}")
+    res = timed("profile_ugpm", profile_ugpm.main, "cuda", log=log, **d["profile_ugpm"])
+    _finite_ms("profile_ugpm", res["variants"])
+    res = timed("dispatch", dispatch.main, "cuda", log=log, **d["dispatch"])
+    if not (res["hmc"]["finite"] and res["launches"]["nn1_select"]
+            and all(p["aligns_per_s"] > 0 for p in res["probes"].values())):
+        fail(f"dispatch: {res}")
+    launches["dispatch"] = res["launches"]
+    print(f"[scripts] {CARD}: depth {SCRIPTS_DEPTH}", flush=True)
+    return launches
+
+
 # ---- lanes -----------------------------------------------------------------
 
 # The phases of the two circuit runs go in child processes of their own
@@ -3051,11 +3182,11 @@ def replay_phase(K, tmp):
 T0 = time.time()  # the script's start, on every process's clock
 
 
-def timed(name, fn, *args):
+def timed(name, fn, *args, **kwargs):
     """Run one phase and print its seconds and when it ended since the
     script started."""
     t = time.time()
-    out = fn(*args)
+    out = fn(*args, **kwargs)
     print(f"[time] {name}: {time.time() - t:.1f} s, ended {time.time() - T0:.1f} s after the "
           f"start", flush=True)
     return out
@@ -3130,8 +3261,10 @@ def full_circuit_lane(K, tmp):
 
 
 def evaluation_lane(K, tmp):
-    """The shortened straight, then the circuit lane's recording replayed."""
+    """The shortened straight, the rest of `scripts/`, then the circuit
+    lane's recording replayed."""
     launches = {"straight": timed("straight", straight_phase, K, tmp)}
+    launches.update(timed("scripts", scripts_phase, K))
     launches["replay"] = timed("replay", replay_phase, K, tmp)
     return launches
 

@@ -45,17 +45,11 @@ def _inputs():
 def _device_us(fn, launches=50):
     """Mean device time (us) of the nn1 kernel over `launches` calls (the
     profiler may drop an activity: at least half must be seen)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from ..utils.profiling import device_activities
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.device_time_total for e in prof.events()
-             if e.device_type == DeviceType.CUDA and "nn1_kernel" in e.name]
+    times = [us for name, us in device_activities(lambda: [fn() for _ in range(launches)])
+             if "nn1_kernel" in name]
     if not launches // 2 <= len(times) <= launches:
         raise RuntimeError(f"expected {launches} kernel activities, saw {len(times)}")
     return sum(times) / len(times)

@@ -7,6 +7,11 @@ synchronises the device before it reads the clock at a stage's start and
 end, so a stage's time is the device work it enqueued and not only the
 enqueue, and excludes work enqueued before it. `trace()` is the counterpart
 of the JAX package's `jax.profiler` wrapper, over `torch.profiler`.
+`events_ms` and `device_activities` are the card's two clocks that the
+port's timing tools read (`evaluation/timing.py`, `ops/nn_profile.py`,
+`chip_smoke.py`). `graph/solve_timing.py` and `ops/call_timing.py` keep
+their own copies: they time whichever tree is first on the path, which may
+predate these two.
 """
 
 from __future__ import annotations
@@ -78,3 +83,32 @@ def trace(log_dir=None):
     with profile(activities=activities) as prof:
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def events_ms(fn, calls=1) -> float:
+    """Milliseconds between one pair of CUDA events around `calls` calls of
+    `fn()` back to back, with no host read in between: where the host
+    launches slower than the card runs, the host's time. Needs a card."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def device_activities(fn) -> list:
+    """(name, device us) of every activity (kernel, copy, memset) that `fn()`
+    puts on the card, under torch.profiler, the card synchronised before and
+    after. Profile few calls: the profiler's host-side event list grows with
+    every kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.device_time_total) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]

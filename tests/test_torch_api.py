@@ -28,19 +28,18 @@ SCRIPTS = {
     "loop_sweep.py": "evaluation/loop_sweep.py",
     "stream_benchmark.py": "evaluation/stream.py",
     "graph_baseline.py": "evaluation/graph_baseline.py",
+    "bench_scaling.py": "evaluation/scaling.py",
+    "demo_multihost.py": "evaluation/multihost.py",
+    "profile_ndt.py": "evaluation/profile_ndt.py",
+    "profile_linearize.py": "evaluation/profile_linearize.py",
+    "profile_graph_solve.py": "evaluation/profile_graph_solve.py",
+    "profile_ugpm.py": "evaluation/profile_ugpm.py",
+    "profile_ugpm2.py": "evaluation/profile_ugpm.py",
+    "make_ugpm_golden.py": "evaluation/ugpm_golden.py",
+    "diagnose_dispatch_poison.py": "evaluation/dispatch.py",
 }
-# scripts still to port, each with its ROADMAP item (Queue A, A20)
-SCRIPTS_LATER = {
-    "bench_scaling.py": "A20.1",
-    "demo_multihost.py": "A20.2",
-    "profile_ndt.py": "A20.3",
-    "profile_linearize.py": "A20.4",
-    "profile_graph_solve.py": "A20.5",
-    "profile_ugpm.py": "A20.5",
-    "profile_ugpm2.py": "A20.5",
-    "make_ugpm_golden.py": "A20.6",
-    "diagnose_dispatch_poison.py": "A20.7",
-}
+# scripts still to port, each with its ROADMAP item (Queue A): none since A20.7
+SCRIPTS_LATER = {}
 RANDOM_KEYS = {"key", "rng"}  # replaced by `generator` or explicit draws
 # the port module that holds a JAX module's names, where the file differs
 MODULES = {"ops/nn_pallas.py": "ops/nn.py"}
