@@ -19,6 +19,15 @@ loops reads the device from the host.
 On the card `run_hmc` evaluates the density and its gradient through a
 captured CUDA graph (`CudaGraphed`): the same kernels, launched as one.
 
+Traced (`utils.profiling.span`, on while a torch.profiler session records),
+`run_hmc` keeps the spans `hmc.run` (the call, with the counts `chains`,
+`warmup_draws`, `draws`, `leapfrog_steps`, `density_replays`,
+`density_eager` and `captures`), `hmc.capture`, `hmc.init`, `hmc.loop`
+(its warm-up and sampling iterations) and in it an `hmc.trajectory` around
+each draw's trajectory, and `CudaGraphed` an `hmc.replay` around each
+replay; on the card `hmc.run`, `hmc.loop`, `hmc.trajectory` and
+`hmc.replay` carry CUDA event pairs. Tracing changes no kernel and no draw.
+
 Randomness: `jax.random` cannot be reproduced, so each random draw enters
 as a tensor (`z`, `log_u`, ...); the public functions draw them from an
 explicit `torch.Generator` on the chains' device when they are not given.
@@ -33,6 +42,7 @@ import numpy as np
 import torch
 
 from ..graph.solver import f32_matmuls
+from ..utils import profiling
 
 
 class HMCState(NamedTuple):
@@ -53,6 +63,11 @@ def value_and_grad(logprob_fn: Callable, q):
     replays its captured graph, at its captured shape only."""
     if isinstance(logprob_fn, CudaGraphed):
         return logprob_fn.value_and_grad(q)
+    profiling.count("density_eager")
+    return _eager_value_and_grad(logprob_fn, q)
+
+
+def _eager_value_and_grad(logprob_fn: Callable, q):
     with torch.enable_grad(), f32_matmuls():
         q = q.detach().requires_grad_(True)
         lp = logprob_fn(q)
@@ -76,14 +91,17 @@ class CudaGraphed:
         torch.cuda.current_stream(like.device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
-            self.lp, self.g = value_and_grad(logprob_fn, self.q)
+            self.lp, self.g = _eager_value_and_grad(logprob_fn, self.q)
+        profiling.count("captures")
 
     def value_and_grad(self, q):
         if q.shape != self.q.shape:
             raise ValueError(f"CudaGraphed: captured at {tuple(self.q.shape)}, called at "
                              f"{tuple(q.shape)}")
         self.q.copy_(q)
-        self.graph.replay()
+        with profiling.span("hmc.replay", self.q.device):
+            self.graph.replay()
+        profiling.count("density_replays")
         return self.lp.clone(), self.g.clone()
 
 
@@ -107,6 +125,7 @@ def _leapfrog(logprob_fn, q, p, grad, step_size, n_steps, inv_mass):
         q = q + eps * (inv_mass * p)
         lp, grad = value_and_grad(logprob_fn, q)
         p = p + 0.5 * eps * grad
+    profiling.count("leapfrog_steps", n_steps)
     return q, p, grad, lp
 
 
@@ -205,15 +224,31 @@ def _run_hmc_core(logprob_fn, position0, n_samples, step_size, n_leapfrog, adapt
     """`run_hmc` on given draws: z_momenta (S, C, D), log_u (S, C), S the
     warmup iterations followed by the sampling ones."""
     n_warm = _n_warmup(n_samples, adapt, n_warmup)
-    if position0.is_cuda:
-        logprob_fn = CudaGraphed(logprob_fn, position0)
-    state = hmc_init(logprob_fn, position0)
+    dev = position0.device
+    chains = math.prod(position0.shape[:-1])
+    with profiling.span("hmc.run", dev, chains=chains, warmup_draws=n_warm, draws=n_samples):
+        if position0.is_cuda:
+            with profiling.span("hmc.capture"):
+                logprob_fn = CudaGraphed(logprob_fn, position0)
+        with profiling.span("hmc.init"):
+            state = hmc_init(logprob_fn, position0)
+        with profiling.span("hmc.loop", dev):
+            return _iterate(logprob_fn, state, n_warm, n_samples, step_size, n_leapfrog,
+                            inv_mass, z_momenta, log_u)
+
+
+def _iterate(logprob_fn, state, n_warm, n_samples, step_size, n_leapfrog, inv_mass, z_momenta,
+             log_u):
+    """`run_hmc`'s warm-up and sampling iterations from `state`."""
+    position0 = state.position
+    dev = position0.device
     if n_warm > 0:
         da = dual_averaging_init(step_size, position0.shape[:-1], position0.dtype,
                                  position0.device)
         for s in range(n_warm):
-            state, info = hmc_step(state, logprob_fn, torch.exp(da.log_step), n_leapfrog,
-                                   inv_mass, z=z_momenta[s], log_u=log_u[s])
+            with profiling.span("hmc.trajectory", dev):
+                state, info = hmc_step(state, logprob_fn, torch.exp(da.log_step), n_leapfrog,
+                                       inv_mass, z=z_momenta[s], log_u=log_u[s])
             # a divergence counts as acceptance 0 for adaptation (Stan's rule)
             astat = torch.where(torch.isfinite(info.accept_prob), info.accept_prob,
                                 torch.zeros_like(info.accept_prob))
@@ -223,8 +258,9 @@ def _run_hmc_core(logprob_fn, position0, n_samples, step_size, n_leapfrog, adapt
         eps = torch.as_tensor(step_size, dtype=position0.dtype, device=position0.device)
     samples, accepts = [], []
     for s in range(n_warm, n_warm + n_samples):
-        state, info = hmc_step(state, logprob_fn, eps, n_leapfrog, inv_mass, z=z_momenta[s],
-                               log_u=log_u[s])
+        with profiling.span("hmc.trajectory", dev):
+            state, info = hmc_step(state, logprob_fn, eps, n_leapfrog, inv_mass, z=z_momenta[s],
+                                   log_u=log_u[s])
         samples.append(state.position)
         accepts.append(info.accept_prob)
     return torch.stack(samples, dim=-2), torch.stack(accepts, dim=-1)

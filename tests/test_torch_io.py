@@ -102,12 +102,24 @@ def test_stage_timer_reports_like_jax():
 
 def test_trace_writes_a_chrome_trace_of_the_block(tmp_path):
     """`trace` profiles its block with torch.profiler and writes a Chrome
-    trace into `log_dir`, as the JAX package's `trace` wraps its profiler."""
+    trace into `log_dir`, as the JAX package's `trace` wraps its profiler;
+    the program's spans of the block (here `run_hmc`'s) lie in it as host
+    events on the profiler's clock, around the operations they enclosed."""
+    from gorio_tpu_torch.inference.hmc import run_hmc
+
     with trace(str(tmp_path / "trace")) as log_dir:
         torch.mm(torch.ones(8, 8), torch.ones(8, 8))
+        run_hmc(lambda q: -0.5 * torch.sum(q * q, dim=-1), torch.zeros((2, 3)), n_samples=2,
+                n_leapfrog=2, adapt=False, generator=torch.Generator().manual_seed(0))
     events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
     assert log_dir == str(tmp_path / "trace")
     assert any(e.get("name") == "aten::mm" for e in events)
+    (run,) = [e for e in events if e.get("name") == "hmc.run"]
+    assert run["cat"] == "gorio_span" and run["args"]["leapfrog_steps"] == 4
+    mm = next(e for e in events if e.get("name") == "aten::mm")
+    inside = [e for e in events if e.get("cat") == "cpu_op" and e["ts"] >= run["ts"]
+              and e["ts"] + e["dur"] <= run["ts"] + run["dur"]]
+    assert inside and mm["ts"] + mm["dur"] <= run["ts"]
 
 
 def test_native_unavailable_auto_build_and_force(tmp_path, monkeypatch):
